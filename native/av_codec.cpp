@@ -1,5 +1,5 @@
 // Generic compressed-audio decode/encode through FFmpeg's libavformat /
-// libavcodec / libswresample — the TPU framework's counterpart of the
+// libavcodec / libswresample — the framework's counterpart of the
 // reference CLI's AVFoundation-wide ingest (reference:
 // SyllableDetectorCLI/main.swift:63-76, AVAssetReader decodes anything the
 // OS knows: AAC/M4A/ALAC/MP3/FLAC/CAF/...).

@@ -1,7 +1,7 @@
 // Lock-free single-producer/single-consumer byte ring buffer with
 // virtual-memory mirroring.
 //
-// TPU-native runtime equivalent of the reference's TPCircularBuffer
+// Linux runtime equivalent of the reference's TPCircularBuffer
 // (reference: Common/TPCircularBuffer/TPCircularBuffer.c:43-136,
 // TPCircularBuffer.h:53-189): the reference maps the buffer twice in
 // contiguous virtual address space with mach vm_remap so reads and writes

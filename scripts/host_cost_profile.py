@@ -1,8 +1,8 @@
 """Isolate the live pipeline's HOST costs (single-core budget).
 
-The live campaign capped at 320-384 lanes on this host's one CPU core;
-this harness measures each host-side stage in isolation (device stubbed
-out) so the next native optimization targets the real top cost:
+One host core does the live pipeline's fan-out and staging; this harness
+measures each host-side stage in isolation (device stubbed out) so the
+next native optimization targets the real top cost:
 
   * bank drain staging: consolidate + quantize + [n_lanes, need] assembly
   * worker ring->bank feed: peek/consume/append/gap-splice loop
@@ -45,7 +45,9 @@ def main():
     from syllable_detector_tpu.config.model_format import load_config
     from syllable_detector_tpu.models.detector_bank import DetectorBank
 
-    cfg = load_config(os.environ.get("SD_NET", "/root/reference/sample.txt"))
+    cfg = load_config(os.environ.get("SD_NET", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "sample_net.txt")))
     lanes = args.lanes
     rate = cfg.sampling_rate
 

@@ -1,30 +1,25 @@
 """Multi-PROCESS live scale: lane shards across worker processes, one
 device-owner parent.
 
-The r5 single-process campaign named the 384-lane wall precisely: the
-feed/staging thread needs ~1.8 cores' worth of host work on this 1-core
-container (live_scale_results.jsonl, feed busy_frac 0.87) while the chip
-sits at ~0.1% of kernel capacity. This harness runs the scale-out
-architecture from syllable_detector_tpu/runtime/shard_bank.py end to
-end on the real chip:
+In the single-process pipeline one feed/staging thread does the host work
+of every lane, so one core bounds the lane count. This harness runs the
+scale-out architecture from syllable_detector_tpu/runtime/shard_bank.py
+end to end on the GPU:
 
 * each WORKER process runs the full live pipeline for its shard —
   wall-clock simulated capture -> Processor fan-out -> native ring ->
   bank staging (the host-bound work) — by reusing live_scale_hw's
   run_point verbatim, with the bank's ``_wire_outputs`` rewired to a
   shared-memory round-trip;
-* the PARENT owns the chip (TPU runtimes are single-process) and serves
+* the PARENT owns the card (one JAX process per card) and serves
   every staged ``[c_w, need]`` drain round through
   runtime.shard_bank.WireDeviceServer — the same one-device-program
   drains as the single-process bank.
 
-On a multi-core deployment host the workers' staging parallelizes and
-the sustained lane count scales with cores until the wire or the chip
-binds. On THIS container (nproc=1!) all processes share one core, so
-the harness validates the machinery against real device timing rather
-than setting records — run it with modest shards and read the per-worker
-splits. A worker's "device" wall here includes queueing at the parent
-server: the true per-shard view of a shared chip.
+On a multi-core host the workers' staging parallelizes and the
+sustained lane count scales with cores until the wire or the card binds.
+A worker's "device" wall includes queueing at the parent server: the
+true per-shard view of a shared card.
 
 Run:  python scripts/live_multiproc_hw.py --workers 2 --lanes 192 \
           --seconds 60 --wire int16
@@ -38,11 +33,6 @@ import os
 import sys
 import time
 
-os.makedirs(os.path.expanduser("~/.cache/syllable_detector_tpu/xla"), exist_ok=True)
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.expanduser("~/.cache/syllable_detector_tpu/xla"),
-)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -110,7 +100,7 @@ def _worker_main(
             wire=wire,
             buffer_seconds=buffer_seconds,
             ring_seconds=ring_seconds,
-            allow_cpu=True,  # the chip probe/ownership lives in the parent
+            allow_cpu=True,  # the device probe/ownership lives in the parent
             bank_patch=bank_patch,
             start_gate=barrier.wait,
             label=f"worker {worker_id}: {lanes_w} lanes",
@@ -130,7 +120,7 @@ def _worker_main(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--net", default="/root/reference/sample.txt")
+    ap.add_argument("--net", default=os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sample_net.txt"))
     ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--lanes", type=int, default=192, help="TOTAL lanes")
     ap.add_argument("--seconds", type=float, default=60.0)
@@ -159,7 +149,7 @@ def main():
 
     if not args.allow_cpu:
         dev = jax.devices()[0]
-        assert dev.platform != "cpu", f"need the real chip, got {dev}"
+        assert dev.platform != "cpu", f"needs a GPU, got {dev}"
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
     min_hops = args.min_hops if args.min_hops is not None else buckets[0]

@@ -18,10 +18,6 @@ COMMANDS = {
         "syllable_detector_tpu.dist_scan",
         "multi-host corpus scan (jax.distributed, sharded file list)",
     ),
-    "tune": (
-        "syllable_detector_tpu.tuning",
-        "measure kernel configs on this device and cache the winners",
-    ),
 }
 
 

@@ -20,13 +20,13 @@ Usage:  python -m syllable_detector_tpu.cli -n NET.txt -a FILE.wav [-a ...]
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
 
 from syllable_detector_tpu.config.model_format import ConfigError, load_config
 from syllable_detector_tpu.runtime.track_detector import TrackDetector
+from syllable_detector_tpu.utils.compile_cache import enable_compile_cache
 from syllable_detector_tpu.utils.wav import read_audio
 
 __all__ = ["main", "run_file"]
@@ -40,7 +40,7 @@ CHUNK = 65536
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="syllable-detector",
-        description="Syllable detection over audio files (TPU-native).",
+        description="Syllable detection over audio files.",
         epilog=(
             "The command line will write a comma-separated list of detection "
             "events (when the network has at least one output above "
@@ -74,16 +74,15 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--method",
-        choices=("matmul", "rfft", "fused"),
+        choices=("matmul", "rfft"),
         default="matmul",
-        help="Spectral backend (default: GEMM-native band DFT; 'fused' = "
-        "the Pallas detection kernel).",
+        help="Spectral backend of the XLA path (default: GEMM band DFT; "
+        "'rfft' = full FFT then band slice).",
     )
     p.add_argument(
         "--batched",
         action="store_true",
-        help="Batched corpus mode: all files in one device computation "
-        "(optionally with --method fused for the Pallas kernel).",
+        help="Batched corpus mode: all files in one device computation.",
     )
     p.add_argument(
         "--batch-files",
@@ -179,28 +178,9 @@ def run_file(
     return True
 
 
-def _enable_persistent_compile_cache() -> None:
-    """Cache XLA compilations across CLI invocations (big win on TPU, where
-    a cold compile dwarfs the detection math)."""
-    try:
-        import jax
-
-        cache_dir = os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            os.path.join(
-                os.path.expanduser("~"), ".cache", "syllable_detector_tpu", "xla"
-            ),
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # cache is an optimization; never fail the CLI for it
-        pass
-
-
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
-    _enable_persistent_compile_cache()
+    enable_compile_cache()
 
     try:
         configs = [load_config(n) for n in args.net]

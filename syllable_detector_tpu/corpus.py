@@ -2,7 +2,7 @@
 computation.
 
 The reference CLI iterates files sequentially, one detector per track
-(reference: SyllableDetectorCLI/main.swift:63-131). The TPU-native corpus
+(reference: SyllableDetectorCLI/main.swift:63-131). The batched corpus
 path pads all streams to a shared bucket length, stacks them on a batch axis,
 and runs the whole corpus through one vmapped (optionally mesh-sharded)
 detection call — the "batched offline corpus scan" deployment shape.
@@ -39,14 +39,14 @@ __all__ = [
 
 
 @partial(jax.jit, static_argnames=("spec", "method"))
-def _batch_unfused(spec: DetectorSpec, params, xs: jax.Array, method: str):
+def _batch(spec: DetectorSpec, params, xs: jax.Array, method: str):
     return jax.vmap(
         lambda x: offline_outputs(spec, params, x, method=method)
     )(xs)
 
 
 @partial(jax.jit, static_argnames=("spec", "method"))
-def _batch_unfused_distinct(
+def _batch_distinct(
     spec: DetectorSpec, stacked, xs: jax.Array, method: str
 ):
     return jax.vmap(
@@ -62,24 +62,15 @@ def batch_offline_outputs_shared(
     ``params`` is ONE shared network (dict) or a sequence of C DISTINCT
     per-lane networks sharing the spec's geometry (the reference's
     one-net-per-channel deployment, Processor.swift:57-59).
-    method='fused' routes through the Pallas kernel (one launch for all
-    channels); 'matmul'/'rfft' use the unfused XLA pipeline. The fused
-    dispatch must happen OUTSIDE jit: fold_constants consumes params as
-    host numpy, which a traced argument would break.
+    ``method`` picks the spectral backend ('matmul' or 'rfft').
     """
-    if method == "fused":
-        from syllable_detector_tpu.kernels.fused_detector import (
-            fused_batch_offline_outputs,
-        )
-
-        return fused_batch_offline_outputs(spec, params, xs)
     if isinstance(params, (list, tuple)):
         from syllable_detector_tpu.models.neural_net import stack_params
 
-        return _batch_unfused_distinct(
+        return _batch_distinct(
             spec, stack_params(list(params)), xs, method
         )
-    return _batch_unfused(spec, params, xs, method)
+    return _batch(spec, params, xs, method)
 
 
 from collections import OrderedDict
@@ -91,7 +82,7 @@ _SPEC_MEMO_MAX = 16
 
 def _spec_cache(cfg: SyllableDetectorConfig):
     """Reuse (spec, params) across calls for the same config object so the
-    jit and fused fold caches stay warm (holds a strong cfg reference so the
+    jit caches stay warm (holds a strong cfg reference so the
     id cannot be recycled)."""
     key = id(cfg)
     hit = _spec_memo.get(key)
@@ -121,18 +112,10 @@ def sharded_batch_offline_outputs_shared(
     ``params``: one shared net (replicated per device) or C distinct
     per-lane nets (sharded with their lanes). C must divide by the mesh
     size (scan_corpus pads). No cross-device communication — lanes are
-    embarrassingly parallel (Processor.swift:57-59's fan-out, multi-chip)."""
+    embarrassingly parallel (Processor.swift:57-59's fan-out, multi-device)."""
     from jax.sharding import PartitionSpec as P
 
-    distinct = isinstance(params, (list, tuple))
-    if method == "fused":
-        # the flagship path: folded operands shard along the channel axis
-        from syllable_detector_tpu.parallel.mesh import (
-            sharded_fused_offline_outputs,
-        )
-
-        return sharded_fused_offline_outputs(mesh, spec, params, xs)
-    if distinct:
+    if isinstance(params, (list, tuple)):
         from syllable_detector_tpu.models.neural_net import stack_params
         from syllable_detector_tpu.parallel.mesh import sharded_offline_outputs
 
@@ -143,8 +126,6 @@ def sharded_batch_offline_outputs_shared(
     axis = mesh.axis_names[0]
 
     def local(x):
-        # params ride in as host-side constants (never traced arguments —
-        # the fused fold consumes them as numpy)
         return batch_offline_outputs_shared(spec, params, x, method=method)
 
     fn = jax.shard_map(
@@ -172,9 +153,7 @@ def scan_corpus(
     ``lane_configs`` gives each stream its own DISTINCT network (the
     reference's one-net-per-channel deployment, Processor.swift:57-59) —
     one config per stream, all sharing ``cfg``'s pipeline geometry
-    (thresholds may differ; they are applied later per lane). On the fused
-    method the distinct nets ride the flagship kernel via channel-stacked
-    folded operands.
+    (thresholds may differ; they are applied later per lane).
     """
     spec, params = _spec_cache(cfg)
     if not streams:
@@ -281,9 +260,7 @@ def scan_corpus_files(
 
     ``cfg`` may be a sequence of configs: channel c of every file then uses
     network ``cfgs[c % len(cfgs)]`` (cycled, like the GUI's per-row network
-    loading, ViewControllerProcessor.swift:222-276) — distinct nets ride
-    the fused kernel's channel-stacked operands under ``method='fused'``.
-    All nets must share the first network's pipeline geometry.
+    loading, ViewControllerProcessor.swift:222-276). All nets must share the first network's pipeline geometry.
     """
     import sys
 
@@ -316,8 +293,8 @@ def scan_corpus_files(
                 f"{cfg.sampling_rate} Hz (resampling disabled)."
             )
         elif rate != cfg.sampling_rate:
-            # polyphase-resample to the net rate before the fused kernel,
-            # like the reference's AVAssetReader output settings
+            # polyphase-resample to the net rate before detection, like
+            # the reference's AVAssetReader output settings
             from syllable_detector_tpu.ops.resample import polyphase_resample
 
             err(f"Resampling {p} from {rate} Hz to {cfg.sampling_rate} Hz.")

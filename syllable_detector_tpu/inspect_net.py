@@ -69,9 +69,9 @@ def main(argv=None) -> int:
     print(f"thresholds:         {', '.join(f'{t:g}' for t in cfg.thresholds)}")
     n_params = sum(l.weights.size + l.biases.size for l in cfg.layers)
     print(f"parameters:         {n_params}")
-    from syllable_detector_tpu.kernels.fused_detector import fusable
+    from syllable_detector_tpu.models.detector import fusable
 
-    print(f"fused-kernel ready: {fusable(spec)}")
+    print(f"foldable chain:     {fusable(spec)}")
     return 0
 
 

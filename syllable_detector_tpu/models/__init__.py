@@ -1,4 +1,4 @@
-"""L3 — detection core: the MLP and the fused detector pipelines."""
+"""L3 — detection core: the MLP and the detector pipelines."""
 
 from syllable_detector_tpu.models.neural_net import (
     NetSpec,

@@ -1,4 +1,4 @@
-"""Detection pipeline core — the TPU re-design of Common/SyllableDetector.swift.
+"""Detection pipeline core — the batched re-design of Common/SyllableDetector.swift.
 
 The reference drives a streaming vDSP FFT and a feature ring buffer one hop at
 a time (SyllableDetector.swift:129-217). Here the same math is expressed three
@@ -135,6 +135,28 @@ def detector_spec_from_config(cfg: SyllableDetectorConfig) -> tuple[DetectorSpec
         net=net_spec,
     )
     return spec, params
+
+
+def fusable(spec: DetectorSpec) -> bool:
+    """Whether the net's input chain folds into its first layer: an
+    optional leading l2normalize, then only affines (mapminmax/mapstd),
+    affine output maps, and known transfers. The tensor-parallel path
+    relies on this algebra."""
+    for name in spec.net.input_processing:
+        if name not in ("l2normalize", "mapminmax", "mapstd", "passthrough"):
+            return False
+    # l2normalize must come first if present (it does in MATLAB exports,
+    # convert_to_text.m:118-182) so the affines fold into W1
+    names = [n for n in spec.net.input_processing if n != "passthrough"]
+    if "l2normalize" in names[1:]:
+        return False
+    for name in spec.net.output_processing:
+        if name not in ("mapminmax", "mapstd", "passthrough"):
+            return False
+    for t in spec.net.transfers:
+        if t not in ("TanSig", "LogSig", "PureLin", "SatLin"):
+            return False
+    return spec.scaling in ("linear", "log", "db")
 
 
 def detect_features(spec: DetectorSpec, params: dict, features: jax.Array) -> jax.Array:
@@ -340,12 +362,8 @@ class Detector:
 
     def __init__(self, cfg: SyllableDetectorConfig, method: str = "matmul"):
         self.config = cfg
-        self.spec, self.params = detector_spec_from_config(cfg)
-        if method == "fused":
-            from syllable_detector_tpu.kernels.fused_detector import fusable
-
-            if not fusable(self.spec):
-                method = "matmul"  # same fallback the offline fused path takes
+        self.spec, params = detector_spec_from_config(cfg)
+        self.params = jax.device_put(params)  # no per-drain weight upload
         self.method = method
         self._residual = np.zeros(0, np.float32)
         self._history = jnp.zeros((self.spec.history, self.spec.n_bins), jnp.float32)
@@ -400,8 +418,6 @@ class Detector:
         rule (SyllableDetector.swift:164-178).
         """
         spec = self.spec
-        if self.method == "fused":
-            return self._drain_fused()
         buf = self._residual
         f = num_frames(len(buf), spec.window_length, spec.window_overlap)
         if f == 0:
@@ -455,95 +471,32 @@ class Detector:
             self.last_outputs = outs[-1]
         return outs
 
-    def _drain_fused(self) -> np.ndarray:
-        """Streaming drain through the fused Pallas kernel.
-
-        The kernel consumes raw samples and needs timeRange frames of context
-        per evaluation, so instead of carrying band-frame history the buffer
-        retains the last (timeRange-1) hops of *samples* after each drain —
-        the next drain's evaluations then start exactly where this one
-        stopped. Sample lengths are bucketed so device kernels compile once
-        per bucket.
-        """
-        from syllable_detector_tpu.kernels.fused_detector import (
-            fused_offline_outputs,
-        )
-
-        spec = self.spec
-        t = spec.time_range
-        hop = spec.hop
-        gap, _ = normalize_overlap(spec.window_overlap)
-        buf = self._residual
-        f = num_frames(len(buf), spec.window_length, spec.window_overlap)
-        n_new = f - (t - 1)
-        if n_new <= 0:
-            return np.zeros((0, spec.net.outputs), np.float32)
-
-        chunks = []
-        while n_new > 0:
-            take = min(n_new, _FRAME_BUCKETS[-1])
-            bucket = next(b for b in _FRAME_BUCKETS if b >= take)
-            # samples for `bucket` evals = bucket + t - 1 frames
-            need = (bucket + t - 2) * hop + gap + spec.window_length
-            samples = np.zeros(need, np.float32)
-            m = min(len(buf), need)
-            samples[:m] = buf[:m]
-            outs = np.asarray(
-                fused_offline_outputs(spec, self.params, jnp.asarray(samples))
-            )[:take]
-            chunks.append(outs)
-            buf = buf[take * hop :]
-            n_new -= take
-        self._residual = buf
-        self._frames_seen += sum(len(c) for c in chunks)
-        outs = np.concatenate(chunks, axis=0)
-        if len(outs):
-            self.last_outputs = outs[-1]
-        return outs
-
     def warm_up(self, buckets: tuple = _FRAME_BUCKETS) -> int:
         """Eagerly compile every drain shape this detector can hit.
 
-        Each distinct frame bucket is one compiled device computation; on
-        TPU a COLD fused bucket is a 5-10 minute remote Mosaic compile, so
-        a live session that first meets a bucket mid-stream would stall
-        that long. Calling ``warm_up()`` (optionally with a subset of
+        Each distinct frame bucket is one compiled device computation, so
+        a live session that first meets a bucket mid-stream stalls for a
+        compile. Calling ``warm_up()`` (optionally with a subset of
         ``_FRAME_BUCKETS``) moves every compile to session start; the
-        persistent compile cache (see cli._enable_persistent_compile_cache)
-        makes subsequent processes fast. Returns the number of shapes
-        compiled. After a full warm_up, ``drain()`` never triggers a new
-        trace (tested via the jit cache-size contract).
+        persistent compile cache (utils/compile_cache.py) makes later
+        processes fast. Returns the number of shapes compiled. After a
+        full warm_up, ``drain()`` never triggers a new trace (tested via
+        the jit cache-size contract).
         """
         spec = self.spec
         gap, _ = normalize_overlap(spec.window_overlap)
         n = 0
         for b in buckets:
-            if self.method == "fused":
-                from syllable_detector_tpu.kernels.fused_detector import (
-                    fused_offline_outputs,
-                )
-
-                # _drain_fused evaluates `b` hops from a sample buffer of
-                # exactly this size (see its bucket arithmetic)
-                need = (
-                    (b + spec.time_range - 2) * spec.hop
-                    + gap
-                    + spec.window_length
-                )
-                out = fused_offline_outputs(
-                    spec, self.params, jnp.zeros(need, jnp.float32)
-                )
-            else:
-                need = (b - 1) * spec.hop + gap + spec.window_length
-                out, _ = _drain_step(
-                    spec,
-                    self.params,
-                    jnp.zeros(need, jnp.float32),
-                    jnp.zeros((spec.history, spec.n_bins), jnp.float32),
-                    jnp.int32(0),
-                    b,
-                    self.method,
-                )
+            need = (b - 1) * spec.hop + gap + spec.window_length
+            out, _ = _drain_step(
+                spec,
+                self.params,
+                jnp.zeros(need, jnp.float32),
+                jnp.zeros((spec.history, spec.n_bins), jnp.float32),
+                jnp.int32(0),
+                b,
+                self.method,
+            )
             jax.block_until_ready(out)
             n += 1
         return n

@@ -5,7 +5,7 @@ L -> O with per-layer ``transfer(W @ x + b)`` and input/output processing
 chains around it (reference: Common/NeuralNet.swift:230-378). Here the net is
 a pytree of parameters plus a hashable static :class:`NetSpec`, so a single
 traced function serves any number of channels: stack parameter pytrees on a
-leading axis and ``vmap``/``shard_map`` over it — the TPU-native equivalent of
+leading axis and ``vmap``/``shard_map`` over it — the batched equivalent of
 the reference running one independent detector object per audio channel
 (Processor.swift:57-59).
 """
@@ -17,6 +17,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from syllable_detector_tpu.config.model_format import SyllableDetectorConfig
 from syllable_detector_tpu.ops.processing import (
@@ -51,7 +52,9 @@ def net_from_config(cfg: SyllableDetectorConfig) -> tuple[NetSpec, dict]:
     """Build (static spec, parameter pytree) from a parsed config.
 
     Weights keep the reference's (outputs, inputs) row-major orientation
-    (NeuralNet.swift:333, 366-368); ``apply_net`` contracts x @ W^T.
+    (NeuralNet.swift:333, 366-368); ``apply_net`` contracts x @ W^T. The
+    leaves are host numpy arrays: building a net starts no device backend
+    (worker processes that only stage audio build nets too).
     """
     in_names, in_params = specs_to_chain(cfg.process_inputs)
     out_names, out_params = specs_to_chain(cfg.process_outputs)
@@ -63,7 +66,10 @@ def net_from_config(cfg: SyllableDetectorConfig) -> tuple[NetSpec, dict]:
     )
     params = {
         "layers": [
-            {"w": jnp.asarray(l.weights), "b": jnp.asarray(l.biases)}
+            {
+                "w": np.asarray(l.weights, np.float32),
+                "b": np.asarray(l.biases, np.float32),
+            }
             for l in cfg.layers
         ],
         "process_inputs": in_params,

@@ -41,14 +41,14 @@ from syllable_detector_tpu.runtime.processor import (
     ProcessorEntry,
 )
 from syllable_detector_tpu.utils.wav import read_audio
+from syllable_detector_tpu.utils.compile_cache import enable_compile_cache
 
 __all__ = ["main"]
 
 
 def _drain_grace() -> float:
     """Final-drain timeout: device compiles must not stall the last
-    chunk's results; on non-CPU backends give it a compile-sized window
-    (a cold fused bucket is a 5-10 minute remote Mosaic compile)."""
+    chunk's results; on non-CPU backends give it a compile-sized window."""
     try:
         import jax
 
@@ -124,7 +124,7 @@ def interactive_loop(args, input_fn=input, out=print) -> int:
         # otherwise block the REPL for the stream's remaining duration)
         if not getattr(args, "realtime", False):
             interface.wait_until_done(timeout=5.0)
-        # same compile-sized grace as main(): a cold fused bucket on the
+        # same compile-sized grace as main(): a cold drain shape on the
         # final chunk must not make 'stop' silently under-report
         proc.drain_pending(timeout=_drain_grace())
         proc.tear_down()
@@ -287,8 +287,8 @@ def main(argv=None) -> int:
     p.add_argument(
         "--batched-drain",
         action="store_true",
-        help="Drain ALL channels in one fused DetectorBank device call per "
-        "round (per-channel distinct nets ride the batched kernel) instead "
+        help="Drain ALL channels in one DetectorBank device program per "
+        "round (per-channel distinct nets stack per lane) instead "
         "of per-lane drains; lanes group by pipeline geometry, so mixed "
         "geometries batch within each compatible group.",
     )
@@ -304,9 +304,9 @@ def main(argv=None) -> int:
     p.add_argument(
         "--warm-up",
         action="store_true",
-        help="Compile every drain shape BEFORE starting capture (on TPU a "
-        "cold compile is minutes; the persistent cache makes later runs "
-        "fast). Strongly recommended for live TPU sessions.",
+        help="Compile every drain shape BEFORE starting capture, so no "
+        "drain waits on a compile (the persistent cache makes later runs "
+        "fast). Recommended for live sessions.",
     )
     p.add_argument("--duration", type=float, default=2.0, help="Seconds to run.")
     p.add_argument("--realtime", action="store_true", help="Pace to wall clock.")
@@ -325,6 +325,7 @@ def main(argv=None) -> int:
         help="REPL control loop: load/start/stop/table (the GUI flow).",
     )
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     if args.interactive:
         return interactive_loop(args)
@@ -531,7 +532,7 @@ def main(argv=None) -> int:
     on_accel = drain_timeout > 10.0
 
     if args.warm_up:
-        print("warming up drain shapes (first time can take minutes on TPU)…",
+        print("warming up drain shapes…",
               file=sys.stderr)
         n = proc.warm_up()
         print(f"warm-up compiled {n} drain shapes", file=sys.stderr)

@@ -1,6 +1,6 @@
 """L2 — signal-processing primitives as pure JAX functions.
 
-TPU-first re-design of the reference's streaming vDSP pipeline
+Batched re-design of the reference's streaming vDSP pipeline
 (Common/CircularShortTimeFourierTransform.swift, Common/NeuralNet.swift's
 processing/transfer functions, Common/Resampler.swift): everything here is a
 pure function over fixed-shape arrays so it jits, vmaps, and shards cleanly.

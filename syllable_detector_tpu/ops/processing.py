@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Mapping, Sequence
 
 import jax.numpy as jnp
+import numpy as np
 
 from syllable_detector_tpu.config.model_format import ProcessingSpec
 
@@ -90,9 +91,9 @@ def specs_to_chain(
         if s.name in ("mapminmax", "mapstd"):
             params.append(
                 {
-                    "x_offsets": jnp.asarray(s.x_offsets),
-                    "gains": jnp.asarray(s.gains),
-                    "y_offset": jnp.float32(s.y_offset),
+                    "x_offsets": np.asarray(s.x_offsets, np.float32),
+                    "gains": np.asarray(s.gains, np.float32),
+                    "y_offset": np.float32(s.y_offset),
                 }
             )
         else:
@@ -125,8 +126,8 @@ def fold_input_affines(names, procs, n_features: int):
     l2normalize) into per-feature (scale, shift) in float64, so
     ``chain(x) = (x_or_normalized * scale) + shift``.
 
-    Returns (scale [D], shift [D], has_l2). The algebra both the fused
-    kernel's constant folding and the tensor-parallel path rely on:
+    Returns (scale [D], shift [D], has_l2). The algebra the tensor-parallel
+    path relies on:
     W @ (x*s + h) = (W*s) @ x + W @ h.
     """
     import numpy as np

@@ -14,7 +14,7 @@ Two implementations:
     (ViewControllerProcessor.swift:247-250). Self-described in the
     reference as "Terrible quality, very fast" (Resampler.swift:19).
 
-  * :func:`polyphase_resample` — the TPU-idiomatic quality path: a
+  * :func:`polyphase_resample` — the batched quality path: a
     windowed-sinc polyphase FIR evaluated as one batched contraction
     (gather windows -> einsum against a per-phase filter bank), so the
     whole conversion is a single fused XLA computation.
@@ -200,7 +200,7 @@ def linear_resample(data: np.ndarray, in_rate: float, out_rate: float) -> np.nda
 
 
 # ---------------------------------------------------------------------------
-# polyphase FIR (quality path, fully batched for TPU)
+# polyphase FIR (quality path, fully batched)
 # ---------------------------------------------------------------------------
 
 
@@ -239,8 +239,8 @@ def polyphase_plan(up: int, down: int, half_width: int = 10, beta: float = 5.0):
     phase base % up, where base = k*down + half on the upsampled grid. Block
     a's windows for every phase live inside one contiguous input span of
     width W = (max-min window end) + taps, so the whole resampler is
-    hop-strided framing (the slab method — static slices, never a gather,
-    which would lower ~1000x slower feeding a matmul on TPU) followed by a
+    hop-strided framing (the slab method — static slices, never a gather
+    feeding a matmul) followed by a
     single [blocks, W] @ [W, up] contraction against a filter matrix with
     each phase's taps scattered at its own offsets.
 

@@ -1,12 +1,12 @@
-"""Framed short-time Fourier transform, TPU-first.
+"""Framed short-time Fourier transform, GEMM-native.
 
 The reference implements a *streaming* STFT over a lock-free ring buffer,
 computing one vDSP radix-2 real FFT per hop (reference:
-Common/CircularShortTimeFourierTransform.swift:280-337). On TPU the idiomatic
-design is batched and GEMM-native: gather hop-strided windows into a frame
+Common/CircularShortTimeFourierTransform.swift:280-337). On an accelerator
+the idiomatic design is batched and GEMM-native: gather hop-strided windows into a frame
 matrix and compute only the frequency band the detector needs as two real
 matmuls against a windowed band-limited DFT matrix — window multiply, zero
-padding, FFT, and band slice all fold into a single MXU-friendly contraction.
+padding, FFT, and band slice all fold into a single matmul.
 
 Numerics replicated from the reference:
 
@@ -95,8 +95,7 @@ def slab_parts(
 
     Returns (gap, hop, parts) with parts = [(frame col lo, frame col hi,
     slab col lo), ...] — the single home for this geometry; frame_signal and
-    both Pallas kernels (kernels/framed_gemm.py, kernels/fused_detector.py)
-    all delegate here.
+    and the polyphase resampler (ops/resample.py) delegate here.
     """
     gap, _ = normalize_overlap(window_overlap)
     hop = hop_length(window_length, window_overlap)
@@ -118,9 +117,9 @@ def frame_signal(
     output shape is known at trace time.
 
     Implementation note: built from static slices of a ``[rows, hop]``
-    reshape, NOT a gather — on TPU a gather that must materialize (e.g. to
-    feed a matmul) lowers to a pathologically slow loop (~1000x slower than
-    the equivalent slices), while slice+concat compiles to plain copies.
+    reshape, NOT a gather: slice+concat compiles to plain copies, while a
+    gather that must materialize (e.g. to feed a matmul) can lower to a far
+    slower loop.
     Frame k's column block j is row k+j of the hop-strided slab.
     """
     _, hop, part_geo = slab_parts(window_length, window_overlap)
@@ -173,9 +172,9 @@ def _frames_to_band(
 ) -> jax.Array:
     """frames @ [c_re | c_im] as ONE GEMM, then |X| or |X|^2.
 
-    Packing re and im side by side halves the MXU work for narrow bands:
-    separate dots each get their tiny N padded to a full 128-lane tile, so
-    two N=29 matmuls cost two full tiles where the packed N=58 costs one.
+    Packing re and im side by side makes one launch of one wider GEMM
+    instead of two narrow ones (N=58 instead of 2 x N=29 at the sample
+    geometry).
     """
     prec = jax.lax.Precision(precision.lower())
     b = c_cat.shape[1] // 2
@@ -199,7 +198,7 @@ def spectral_frames(
 ) -> jax.Array:
     """[F, window] frames -> [F, n_bins] magnitude (|X|) or power (|X|^2).
 
-    ``method='matmul'`` is the GEMM-native path (MXU); ``method='rfft'`` keeps
+    ``method='matmul'`` is the GEMM-native path; ``method='rfft'`` keeps
     a full jnp.fft.rfft for cross-validation and wide-band use.
     """
     window_length = frames.shape[-1]

@@ -1,9 +1,9 @@
-"""Channel parallelism over a TPU mesh.
+"""Channel parallelism over a device mesh.
 
 The reference's only parallelism is one independent detector per audio
 channel fanned out from the input callback (reference:
 SyllableDetector/Processor.swift:57-59, 102-149) — embarrassingly parallel.
-The TPU-native design: stack per-channel network parameters on a leading
+The multi-device design: stack per-channel network parameters on a leading
 axis, ``vmap`` the detector over it, and shard that axis across a
 ``jax.sharding.Mesh`` with ``shard_map``. No collectives are needed inside a
 hop (channels never communicate); ``psum`` appears only for aggregate
@@ -16,7 +16,6 @@ from syllable_detector_tpu.parallel.mesh import (
     make_mesh,
     batch_offline_outputs,
     sharded_offline_outputs,
-    sharded_fused_offline_outputs,
     sharded_detection_counts,
     sharded_streaming_step,
     time_sharded_offline_outputs,
@@ -27,7 +26,6 @@ __all__ = [
     "make_mesh",
     "batch_offline_outputs",
     "sharded_offline_outputs",
-    "sharded_fused_offline_outputs",
     "sharded_detection_counts",
     "sharded_streaming_step",
     "time_sharded_offline_outputs",

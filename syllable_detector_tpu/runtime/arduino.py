@@ -288,11 +288,9 @@ class NativeFirmwareTransport(Transport):
             ))),
             "native",
         )
-        path = os.path.join(native, "libsdfirmware.so")
         try:
-            ensure_native_library(
+            path = ensure_native_library(
                 os.path.join(native, "arduino_firmware.cpp"),
-                path,
                 extra_flags=("-Wextra",),
             )
         except NativeBuildError as e:

@@ -205,8 +205,8 @@ class Processor:
 
     ``batched=True`` replaces the per-lane Detector drains with
     :class:`~syllable_detector_tpu.models.detector_bank.DetectorBank`
-    calls evaluating lanes' new hops together on the fused kernel (with
-    per-channel distinct networks) — the TPU-native shape for many live
+    calls evaluating lanes' new hops together in one device program (with
+    per-channel distinct networks) — the batched shape for many live
     channels, where the reference drains detectors serially on its GCD
     queue (Processor.swift:128-149). Lanes are GROUPED by pipeline
     geometry, one bank per group, so mixed-geometry deployments batch
@@ -220,7 +220,6 @@ class Processor:
         output: OutputBackend,
         ring_seconds: float = 10.0,
         batched: bool = False,
-        method: Optional[str] = None,
         event_log=None,
         bank_buffer_seconds: float = 30.0,
         bank_buckets: Optional[tuple] = None,
@@ -262,7 +261,6 @@ class Processor:
             for idxs in groups.values():
                 bank = DetectorBank(
                     [self.entries[i].config for i in idxs],
-                    method=method or "fused",
                     pairs=[pairs[i] for i in idxs],  # no double spec build
                     # live deployment knobs (see DetectorBank): a bounded
                     # backlog cap keeps the worst catch-up drain inside the
@@ -290,13 +288,7 @@ class Processor:
             self._lanes.append(
                 _Lane(
                     entry=e,
-                    # honor an explicit method= in per-lane mode too (the
-                    # default stays "matmul" here: live per-lane drains hit
-                    # many hop-count buckets, and each cold fused bucket is
-                    # a 5-10 min Mosaic compile unless warmed)
-                    detector=None
-                    if self._banks
-                    else Detector(e.config, method=method or "matmul"),
+                    detector=None if self._banks else Detector(e.config),
                     ring=ring,
                     resampler=resampler,
                     stat_input=SummaryStat(StatMax()),
@@ -694,7 +686,7 @@ class Processor:
 
     def _drain_all(self, drained: Optional[set] = None) -> None:
         """Batched-drain mode: move every lane's ring into its geometry
-        group's bank and evaluate each group's new hops in one fused
+        group's bank and evaluate each group's new hops in one batched
         device call per group. ``drained`` is the set of lane indices
         whose capture chunks this round covers (default: all lanes) —
         quiet-drain TTL decay (prepare_output with seen=False) fires only
@@ -789,9 +781,8 @@ class Processor:
     def warm_up(self, buckets=None) -> int:
         """Eagerly compile every drain shape this processor can hit (the
         bank's batched buckets, or each lane's Detector buckets). Call
-        BEFORE set_up() on TPU: a cold fused bucket is a 5-10 minute remote
-        Mosaic compile, which would otherwise stall the live worker
-        mid-stream (and outlive drain_pending's timeout). Returns the
+        BEFORE set_up(): a cold drain shape compiles first, which would
+        otherwise stall the live worker mid-stream (and outlive drain_pending's timeout). Returns the
         number of shapes compiled."""
         if self._banks:
             # None lets each bank warm its own pinned ladder

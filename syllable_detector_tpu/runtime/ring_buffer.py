@@ -27,7 +27,6 @@ from syllable_detector_tpu.utils.native_build import (
 __all__ = ["RingBuffer", "RingBlockWriter", "DrainStager", "native_available"]
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libsdring.so")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -44,15 +43,15 @@ def _load_library():
             # (sdstage_batch: int16 23->3.9 ms per 6.5M samples on AVX2);
             # retry plain when the toolchain rejects -march=native
             try:
-                ensure_native_library(
-                    src, _LIB_PATH, extra_flags=("-O3", "-march=native")
+                path = ensure_native_library(
+                    src, extra_flags=("-O3", "-march=native")
                 )
             except NativeBuildError:
-                ensure_native_library(src, _LIB_PATH)
+                path = ensure_native_library(src)
         except NativeBuildError:
             return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
         lib.sdring_create.restype = ctypes.c_void_p
@@ -75,27 +74,25 @@ def _load_library():
         lib.sdring_tail.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
         lib.sdring_consume.argtypes = [ctypes.c_void_p, ctypes.c_int32]
         lib.sdring_clear.argtypes = [ctypes.c_void_p]
-        if hasattr(lib, "sdring_produce_batch"):  # old cached .so: degrade
-            lib.sdring_produce_batch.restype = ctypes.c_int32
-            lib.sdring_produce_batch.argtypes = [
-                ctypes.POINTER(ctypes.c_void_p),
-                ctypes.c_int32,
-                ctypes.c_void_p,
-                ctypes.c_int32,
-                ctypes.POINTER(ctypes.c_uint8),
-            ]
-        if hasattr(lib, "sdstage_batch"):  # old cached .so: degrade
-            lib.sdstage_batch.restype = ctypes.c_int32
-            lib.sdstage_batch.argtypes = [
-                ctypes.c_void_p,  # const float* const* srcs
-                ctypes.c_void_p,  # const int64* lens
-                ctypes.c_int32,  # n_lanes
-                ctypes.c_void_p,  # xs
-                ctypes.c_void_p,  # int64* prev
-                ctypes.c_int64,  # need
-                ctypes.c_int32,  # mode
-                ctypes.c_void_p,  # lut
-            ]
+        lib.sdring_produce_batch.restype = ctypes.c_int32
+        lib.sdring_produce_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_int32,
+            ctypes.c_void_p,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint8),
+        ]
+        lib.sdstage_batch.restype = ctypes.c_int32
+        lib.sdstage_batch.argtypes = [
+            ctypes.c_void_p,  # const float* const* srcs
+            ctypes.c_void_p,  # const int64* lens
+            ctypes.c_int32,  # n_lanes
+            ctypes.c_void_p,  # xs
+            ctypes.c_void_p,  # int64* prev
+            ctypes.c_int64,  # need
+            ctypes.c_int32,  # mode
+            ctypes.c_void_p,  # lut
+        ]
         _lib = lib
         return _lib
 
@@ -275,10 +272,7 @@ class DrainStager:
     MODES = {"float32": 0, "int16": 1, "mulaw8": 2}
 
     def __init__(self, n_lanes: int):
-        lib = _load_library()
-        self._lib = (
-            lib if lib is not None and hasattr(lib, "sdstage_batch") else None
-        )
+        self._lib = _load_library()
         self.n_lanes = int(n_lanes)
         # caller-filled per-round views (kept here so the hot loop never
         # allocates): source pointer + length per lane
@@ -340,7 +334,6 @@ class RingBlockWriter:
         if (
             n
             and lib is not None
-            and hasattr(lib, "sdring_produce_batch")
             and all(r.native for r in self._rings)
         ):
             self._lib = lib

@@ -1,35 +1,28 @@
 """Lane-sharded multi-process DetectorBank: scale the live host pipeline
 past one CPU core.
 
-The r5 live campaign proved the single-process pipeline sustains 256-320
-lanes on THIS host and that the wall is the host core, not the chip: at
-384 lanes the feed/staging thread alone needs ~1.8 cores' worth of work
-(scripts/live_scale_results.jsonl — feed busy_frac 0.87 on a 1-core
-container while device compute sits at ~0.1% of kernel capacity). The
-reference has the same shape in miniature: ONE realtime thread doing all
-host work per Processor (reference:
+In the single-process pipeline one thread does capture fan-out and drain
+staging for every lane, so the host core, not the device, bounds the lane
+count. The reference has the same shape in miniature: ONE realtime thread
+doing all host work per Processor (reference:
 SyllableDetector/Processor.swift:102-149). This module is the scale-out:
 
 * **Workers** (one process per lane shard) own everything host-bound —
   segment accounting, gap splicing, drain staging (the native
   ``sdstage`` quantize+assemble call), exactly the per-lane algebra of
   :class:`~syllable_detector_tpu.models.detector_bank.DetectorBank`,
-  which they subclass. They never touch the device.
-* **The parent** owns the ONE chip (TPU runtimes are single-process per
-  chip — workers cannot multiplex it) and runs a device-server thread:
+  which they subclass. They never start a JAX backend (nets stay host
+  numpy; the staged rounds go to the parent).
+* **The parent** owns the card (a JAX process reserves most of a GPU's
+  memory, so one process per card) and runs a device-server thread:
   each staged ``[c_w, need]`` wire buffer arrives via shared memory, is
   evaluated with the same one-device-program drain the single-process
-  bank uses (``fused_batch_program``; eager/matmul fallbacks included,
-  because the server delegates to a real eval-only ``DetectorBank`` per
-  shard), and the ``[c_w, n_evals, outputs]`` block returns through the
-  shard's response window.
+  bank uses (the server delegates to a real eval-only ``DetectorBank``
+  per shard), and the ``[c_w, n_evals, outputs]`` block returns through
+  the shard's response window.
 
 Workers therefore burn their own cores on staging while device rounds
-serialize at the parent — the correct split for a one-chip host. On a
-multi-core deployment host the staging cost (measured 0.26%/lane of a
-core, 89% at 320 lanes) parallelizes across W workers; on this 1-core
-container the machinery is correctness-verified but cannot beat the
-single-process numbers (both sides share the core).
+serialize at the parent — the correct split for a one-card host.
 
 Transport is ``multiprocessing.shared_memory`` + queues: one request
 arena and one response arena per worker (sized for the largest drain
@@ -37,7 +30,7 @@ bucket), a shared request queue into the server, and a per-worker
 response queue. A whole drain round moves host->host with ONE memcpy
 each way; pickling is reserved for the small per-drain metadata reply.
 
-Processes use the ``spawn`` start method: forking a parent whose TPU
+Processes use the ``spawn`` start method: forking a parent whose device
 client is initialized duplicates runtime state the child cannot use.
 """
 
@@ -54,14 +47,13 @@ import numpy as np
 from syllable_detector_tpu.models.detector_bank import DetectorBank
 from syllable_detector_tpu.models.detector import detector_spec_from_config
 from syllable_detector_tpu.ops.stft import normalize_overlap, num_frames
+from syllable_detector_tpu.ops.wire import WIRE_DTYPES
 
 __all__ = ["ShardedDetectorBank", "WireDeviceServer"]
 
 # live deployments pin a single drain bucket (one compiled shape); the
-# default here mirrors the campaign profile rather than the full ladder
+# default here is the live deployment profile rather than the full ladder
 _DEFAULT_BUCKETS = (128,)
-
-_WIRE_NP = {"float32": np.float32, "int16": np.int16, "mulaw8": np.int8}
 
 
 def _drain_geometry(spec, buckets):
@@ -155,7 +147,7 @@ def _worker_main(
     req_shm = _attach_shm(req_name)
     resp_shm = _attach_shm(resp_name)
     try:
-        req_view = np.ndarray(req_shape, _WIRE_NP[wire], buffer=req_shm.buf)
+        req_view = np.ndarray(req_shape, WIRE_DTYPES[wire], buffer=req_shm.buf)
         resp_view = np.ndarray(resp_shape, np.float32, buffer=resp_shm.buf)
         link = _DeviceLink(worker_id, req_view, resp_view, req_q, devresp_q)
         bank = _RemoteWireBank(configs, link, **bank_kwargs)
@@ -166,7 +158,11 @@ def _worker_main(
             if op == "stop":
                 break
             try:
-                if op == "append":
+                if op == "backends":
+                    from jax._src import xla_bridge
+
+                    rep_q.put(("ok", xla_bridge.backends_are_initialized()))
+                elif op == "append":
                     bank.append_audio_data(msg[1], msg[2])
                 elif op == "gap":
                     bank.note_gap(msg[1], msg[2])
@@ -209,12 +205,12 @@ def _worker_main(
 
 
 class WireDeviceServer:
-    """The parent-process device half of the sharded bank: owns the one
-    chip, one shared-memory request/response arena pair per worker, and
+    """The parent-process device half of the sharded bank: owns the
+    card, one shared-memory request/response arena pair per worker, and
     a server thread that evaluates staged ``[c_w, need]`` wire rounds
     through a real eval-only :class:`DetectorBank` per shard (so the
-    one-device-program drains, eager fallback, matmul demotion, and wire
-    dequant are byte-for-byte the single-process code).
+    one-device-program drains and wire dequant are byte-for-byte the
+    single-process code).
 
     Reused by :class:`ShardedDetectorBank` (generic command-driven
     workers) and by ``scripts/live_multiproc_hw.py`` (workers that run a
@@ -223,13 +219,12 @@ class WireDeviceServer:
     def __init__(
         self,
         shard_configs,
-        method: str = "fused",
         buckets: tuple = _DEFAULT_BUCKETS,
         transfer_dtype: str = "float32",
         min_drain_hops: int = 1,
         ctx=None,
     ):
-        if transfer_dtype not in _WIRE_NP:
+        if transfer_dtype not in WIRE_DTYPES:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
         self.ctx = ctx if ctx is not None else get_context("spawn")
         self.wire = transfer_dtype
@@ -239,7 +234,7 @@ class WireDeviceServer:
         geom = _drain_geometry(self.spec, buckets)
         need_max = max(geom)
         ne_max = max(geom.values())
-        itemsize = np.dtype(_WIRE_NP[transfer_dtype]).itemsize
+        itemsize = np.dtype(WIRE_DTYPES[transfer_dtype]).itemsize
         self.req_q = self.ctx.Queue()
         self.resp_qs = [self.ctx.Queue() for _ in range(self.n_workers)]
         self._shms: list[shm_mod.SharedMemory] = []
@@ -260,7 +255,7 @@ class WireDeviceServer:
                 req_shape = (c, need_max)
                 resp_shape = (c, ne_max, out_w)
                 self.req_views.append(
-                    np.ndarray(req_shape, _WIRE_NP[transfer_dtype], buffer=req.buf)
+                    np.ndarray(req_shape, WIRE_DTYPES[transfer_dtype], buffer=req.buf)
                 )
                 self.resp_views.append(
                     np.ndarray(resp_shape, np.float32, buffer=resp.buf)
@@ -271,7 +266,6 @@ class WireDeviceServer:
                 self.banks.append(
                     DetectorBank(
                         list(cfgs_w),
-                        method=method,
                         buckets=buckets,
                         transfer_dtype=transfer_dtype,
                         min_drain_hops=min_drain_hops,
@@ -339,7 +333,7 @@ class ShardedDetectorBank:
     """Drop-in multi-process variant of :class:`DetectorBank`: lanes are
     sharded contiguously across ``n_workers`` processes that do all
     host-side staging, while this (parent) process serves every staged
-    round on the one chip. Same drain contract: ``drain()`` returns
+    round on the one card. Same drain contract: ``drain()`` returns
     ``[n_lanes, n_max, outputs]`` with ``last_counts`` /
     ``last_sample_indices`` valid prefixes, gap/overflow accounting
     aggregates per lane, and results are bit-identical to a
@@ -348,15 +342,13 @@ class ShardedDetectorBank:
     same code on both sides).
 
     Intended for multi-core live hosts where one process's staging caps
-    the lane count (scripts/live_scale_results.jsonl: 384 lanes fail at
-    feed busy 87% on one core). Not thread-safe; drive from one thread.
+    the lane count. Not thread-safe; drive from one thread.
     """
 
     def __init__(
         self,
         configs,
         n_workers: int = 2,
-        method: str = "fused",
         max_buffer_seconds: float = 30.0,
         buckets: tuple | None = None,
         transfer_dtype: str = "float32",
@@ -376,7 +368,7 @@ class ShardedDetectorBank:
         )
         out_w = self.spec.net.outputs
         wire = transfer_dtype
-        if wire not in _WIRE_NP:
+        if wire not in WIRE_DTYPES:
             raise ValueError(f"unknown transfer_dtype {wire!r}")
 
         # contiguous near-equal shards
@@ -393,7 +385,6 @@ class ShardedDetectorBank:
         ]
         self._server = WireDeviceServer(
             shard_cfgs,
-            method=method,
             buckets=buckets,
             transfer_dtype=wire,
             min_drain_hops=min_drain_hops,
@@ -403,7 +394,6 @@ class ShardedDetectorBank:
         self._rep_qs = [ctx.Queue() for _ in range(n_workers)]
         self._workers = []
         bank_kwargs = dict(
-            method=method,
             max_buffer_seconds=max_buffer_seconds,
             buckets=buckets,
             transfer_dtype=wire,
@@ -450,8 +440,8 @@ class ShardedDetectorBank:
 
     def warm_up(self) -> int:
         """Compile every drain-bucket device program eagerly (one per
-        bucket per shard). Call before wall-clock feeding — a cold fused
-        bucket is a multi-minute remote compile on TPU."""
+        bucket per shard). Call before wall-clock feeding, so no drain
+        round waits on a compile."""
         return self._server.warm_up()
 
     # -- feeding (routed to the owning worker) ---------------------------
@@ -519,6 +509,13 @@ class ShardedDetectorBank:
                     pos += c
         self.last_counts = counts
         return result
+
+    def worker_backends_initialized(self) -> list[bool]:
+        """Whether each worker process has started a JAX backend. They
+        must not: the parent owns the card."""
+        for q in self._cmd_qs:
+            q.put(("backends",))
+        return [bool(self._get_reply(w)[1]) for w in range(self.n_workers)]
 
     def _get_reply(self, w: int):
         """Blocking reply read that notices a dead worker instead of

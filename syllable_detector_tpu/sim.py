@@ -24,6 +24,7 @@ from syllable_detector_tpu.config.model_format import ConfigError, load_config
 from syllable_detector_tpu.models.detector import Detector
 from syllable_detector_tpu.utils.timing import Time
 from syllable_detector_tpu.utils.wav import read_audio, write_wav
+from syllable_detector_tpu.utils.compile_cache import enable_compile_cache
 
 __all__ = ["simulate", "main"]
 
@@ -81,8 +82,9 @@ def main(argv=None) -> int:
     p.add_argument("-a", "--audio", required=True, help="Input audio file.")
     p.add_argument("-o", "--output", required=True, help="Output WAV path.")
     p.add_argument("--channel", type=int, default=0, help="Input channel to use.")
-    p.add_argument("--method", choices=("matmul", "rfft", "fused"), default="matmul")
+    p.add_argument("--method", choices=("matmul", "rfft"), default="matmul")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     try:
         config = load_config(args.net)

@@ -11,8 +11,8 @@ Usage:
          [--freq 2000 7000] [--time-range 10] [--data-parallel]
 
 Repeat -a/-l in pairs to train one DISTINCT net per channel in a single
-vmapped device program (the training-side counterpart of the fused
-kernel's per-channel distinct networks; the reference trains one MATLAB
+vmapped device program (the training-side counterpart of the live
+bank's per-channel distinct networks; the reference trains one MATLAB
 net per audio channel). -o then takes a ``{ch}`` placeholder (or gets
 ``_<ch>`` inserted before its extension); --channel-parallel shards the
 channel ensemble across local devices.
@@ -34,6 +34,7 @@ from syllable_detector_tpu.training.trainer import (
     train,
 )
 from syllable_detector_tpu.utils.wav import read_audio
+from syllable_detector_tpu.utils.compile_cache import enable_compile_cache
 
 __all__ = ["main", "read_labels"]
 
@@ -96,6 +97,7 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint-every", type=int, default=25)
     p.add_argument("--quiet", action="store_true")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     if len(args.audio) != len(args.labels):
         print(

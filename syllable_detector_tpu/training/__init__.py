@@ -1,4 +1,4 @@
-"""Detector training — the TPU-native replacement for the MATLAB workflow.
+"""Detector training — the JAX replacement for the MATLAB workflow.
 
 The reference trains its MLP offline in MATLAB and exports it to the text
 format with convert_to_text.m (reference: convert_to_text.m:1-214). Here the

@@ -2,9 +2,10 @@
 
 The reference has no runtime checkpointing — its only persistence is the
 exported network text file (SURVEY.md section 5: "recovery is restart the
-app"). For long TPU training runs this module adds orbax-backed pytree
+app"). For long training runs this module adds orbax-backed pytree
 checkpoints of (params, opt_state, step), plus the text export as the
-portable final artifact.
+portable final artifact. orbax is optional: only ``train --checkpoint-dir``
+needs it.
 """
 
 from __future__ import annotations
@@ -16,7 +17,13 @@ __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
 
 
 def _checkpointer():
-    import orbax.checkpoint as ocp
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ValueError(
+            "--checkpoint-dir needs the orbax-checkpoint package, which is "
+            "not installed"
+        ) from e
 
     return ocp.PyTreeCheckpointer()
 

@@ -34,7 +34,6 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
 )
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libsdav.so")
 _AV_LINK = ["-lavformat", "-lavcodec", "-lswresample", "-lavutil"]
 
 _lib = None
@@ -49,15 +48,13 @@ def _load_library():
             return _lib
         _lib_tried = True
         try:
-            ensure_native_library(
-                os.path.join(_NATIVE_DIR, "av_codec.cpp"),
-                _LIB_PATH,
-                link=_AV_LINK,
+            path = ensure_native_library(
+                os.path.join(_NATIVE_DIR, "av_codec.cpp"), link=_AV_LINK
             )
         except NativeBuildError:
             return None  # no toolchain or no FFmpeg dev libraries
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
         lib.sdav_decode_file.restype = ctypes.c_int

@@ -9,6 +9,12 @@ Python package works without a compile step): runtime.ring_buffer
 They share this one build-and-rename sequence instead of three drifting
 copies.
 
+Each build is keyed on what it was built from: the library lands at
+``native/build/lib<stem>-<key>.so``, where the key hashes the source
+bytes, the compiler flags and link line (and the CPU when the flags say
+``-march=native``). An edited source, or a copy of the tree on another
+machine, therefore builds afresh instead of loading a stale ``.so``.
+
 The compile goes to a per-process temp name and is ``os.rename``d into
 place — atomic on POSIX — so another process racing the first build
 (parallel pytest, a ResilientDetector child) can never ``CDLL`` a
@@ -17,6 +23,7 @@ half-written ``.so``; a failed compile removes its temp file.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import subprocess
 from typing import Sequence
@@ -34,21 +41,51 @@ class NativeBuildError(RuntimeError):
         self.stderr = stderr
 
 
+def _cpu_signature() -> bytes:
+    """The CPU's model and feature flags (what -march=native compiles for)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            return b"".join(
+                line for line in fh
+                if line.startswith((b"model name", b"flags"))
+            )
+    except OSError:
+        return b""
+
+
+def library_path(
+    src: str, link: Sequence[str] = (), extra_flags: Sequence[str] = ()
+) -> str:
+    """Where the build of ``src`` with these flags lives."""
+    with open(src, "rb") as fh:
+        key = hashlib.sha256(fh.read())
+    key.update(repr((tuple(extra_flags), tuple(link))).encode())
+    if "-march=native" in extra_flags:
+        key.update(_cpu_signature())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(
+        os.path.dirname(os.path.abspath(src)), "build",
+        f"lib{stem}-{key.hexdigest()[:16]}.so",
+    )
+
+
 def ensure_native_library(
     src: str,
-    out: str,
     link: Sequence[str] = (),
     extra_flags: Sequence[str] = (),
 ) -> str:
-    """Build shared library ``out`` from ``src`` unless it already exists.
+    """Build ``src`` into its keyed shared library unless that exact build
+    exists; returns the library path.
 
     Raises :class:`NativeBuildError` when the source is missing, g++ is
-    unavailable, or the compile fails; returns ``out`` on success.
+    unavailable, or the compile fails.
     """
-    if os.path.exists(out):
-        return out
     if not os.path.exists(src):
         raise NativeBuildError(f"native source {src} not found")
+    out = library_path(src, link, extra_flags)
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     try:
         proc = subprocess.run(

@@ -3,14 +3,14 @@ and hardware smokes.
 
 The reference ships no labeled training data (Examples/ is gitignored,
 .gitignore:3); every training test and hardware validation here uses this
-generator so the suite and the on-chip smokes exercise the SAME data.
+generator so the suite and chip_smoke.py exercise the SAME data.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_labeled_audio", "deepen_net"]
+__all__ = ["make_labeled_audio", "deepen_net", "perturbed_params"]
 
 
 def make_labeled_audio(seconds=4.0, rate=44100, seed=0):
@@ -41,11 +41,9 @@ def deepen_net(spec, params, mid_units=6, transfer="LogSig", seed=0):
     """Graft an extra hidden layer (arbitrary transfer) between a net's
     hidden layer and its output layer -> (spec2, params2).
 
-    The fused kernel's multi-mid path (fold_constants mids, transfers[1:])
-    otherwise only ever sees single-hidden geometries like sample.txt;
-    this mirrors what the train CLI emits for --hidden H1 H2
-    (training/trainer.py builds [features, *hidden, 1]). Used by the
-    kernel/detector tests and scripts/deep_net_hw.py.
+    Mirrors what the train CLI emits for --hidden H1 H2
+    (training/trainer.py builds [features, *hidden, 1]); used by the
+    detector and bank tests.
     """
     import dataclasses
 
@@ -77,3 +75,19 @@ def deepen_net(spec, params, mid_units=6, transfer="LogSig", seed=0):
         transfers=(spec.net.transfers[0], transfer, spec.net.transfers[-1]),
     )
     return dataclasses.replace(spec, net=net2), params2
+
+
+def perturbed_params(params, seed, scale=0.05):
+    """A distinct network of the same geometry: every leaf scaled by
+    ``1 + scale * N(0, 1)`` (host numpy), for per-lane distinct-net runs."""
+    import jax
+
+    r = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: np.asarray(
+            np.asarray(a)
+            * (1.0 + scale * r.standard_normal(np.asarray(a).shape)),
+            dtype=np.asarray(a).dtype,
+        ),
+        params,
+    )

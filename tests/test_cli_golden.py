@@ -1,6 +1,7 @@
 """CLI fidelity oracle: CSV output must match the independent NumPy pipeline
 line for line, including Swift-style float formatting and debounce."""
 
+from conftest import SAMPLE_TXT
 import numpy as np
 import pytest
 
@@ -140,7 +141,7 @@ def test_cli_detects_on_aiff(sample_config, tmp_path, capsys):
     f.setframerate(44100)
     f.writeframes(pcm.tobytes())
     f.close()
-    rc = cli_main(["-n", "/root/reference/sample.txt", "-a", str(p)])
+    rc = cli_main(["-n", SAMPLE_TXT, "-a", str(p)])
     assert rc == 0
     out = [l for l in capsys.readouterr().out.splitlines() if l]
     want = ref.cli_lines(sample_config, pcm.astype(np.float32) / 32768.0)
@@ -182,7 +183,7 @@ def test_debounce(sample_config, audio):
 
 def test_cli_end_to_end(sample_config, audio, capsys):
     path, x = audio
-    rc = cli_main(["-n", "/root/reference/sample.txt", "-a", path])
+    rc = cli_main(["-n", SAMPLE_TXT, "-a", path])
     assert rc == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert_csv_close(out, ref.cli_lines(sample_config, x))
@@ -190,7 +191,7 @@ def test_cli_end_to_end(sample_config, audio, capsys):
 
 def test_cli_multifile_header(sample_config, audio, capsys, tmp_path):
     path, x = audio
-    rc = cli_main(["-n", "/root/reference/sample.txt", "-a", path, "-a", path])
+    rc = cli_main(["-n", SAMPLE_TXT, "-a", path, "-a", path])
     out = capsys.readouterr().out.strip().splitlines()
     # path printed before each file's events (main.swift:122-124)
     assert out[0] == path
@@ -199,7 +200,7 @@ def test_cli_multifile_header(sample_config, audio, capsys, tmp_path):
 
 def test_cli_bad_audio(capsys, tmp_path):
     missing = str(tmp_path / "nope.wav")
-    rc = cli_main(["-n", "/root/reference/sample.txt", "-a", missing])
+    rc = cli_main(["-n", SAMPLE_TXT, "-a", missing])
     assert rc == 0  # reference continues past unreadable files
     assert "Unable to read" in capsys.readouterr().err
 
@@ -220,7 +221,7 @@ def test_cli_resamples_mismatched_rate(sample_config, tmp_path, capsys):
     x = (0.5 * np.sin(phase) * (0.3 + 0.7 * (np.sin(2 * np.pi * 3 * t) > 0)))
     p = tmp_path / "lowrate.wav"
     write_wav(p, x.astype(np.float32), 22050, dtype="float32")
-    rc = cli_main(["-n", "/root/reference/sample.txt", "-a", str(p)])
+    rc = cli_main(["-n", SAMPLE_TXT, "-a", str(p)])
     captured = capsys.readouterr()
     assert rc == 0
     assert "Resampling" in captured.err
@@ -230,7 +231,7 @@ def test_cli_resamples_mismatched_rate(sample_config, tmp_path, capsys):
     # --no-resample keeps raw samples (chirp then only sweeps to 3.5kHz at
     # the wrong rate; behavior differs)
     rc = cli_main(
-        ["-n", "/root/reference/sample.txt", "-a", str(p), "--no-resample"]
+        ["-n", SAMPLE_TXT, "-a", str(p), "--no-resample"]
     )
     assert "Warning" in capsys.readouterr().err
 
@@ -238,13 +239,13 @@ def test_cli_resamples_mismatched_rate(sample_config, tmp_path, capsys):
 def test_inspect(capsys):
     from syllable_detector_tpu.inspect_net import main as inspect_main
 
-    rc = inspect_main(["-n", "/root/reference/sample.txt"])
+    rc = inspect_main(["-n", SAMPLE_TXT])
     out = capsys.readouterr().out
     assert rc == 0
     assert "hop:                132 samples" in out
     assert "bins [12, 41) = 29 bins" in out
     assert "290x4 TanSig -> 4x1 PureLin" in out
-    assert "fused-kernel ready: True" in out
+    assert "foldable chain:     True" in out
     assert inspect_main(["-n", "/nonexistent.txt"]) == 1
 
 
@@ -253,13 +254,13 @@ def test_module_dispatcher(capsys):
 
     assert dispatch([]) == 2
     assert "detect" in capsys.readouterr().out
-    assert dispatch(["inspect", "-n", "/root/reference/sample.txt"]) == 0
-    assert "fused-kernel ready" in capsys.readouterr().out
+    assert dispatch(["inspect", "-n", SAMPLE_TXT]) == 0
+    assert "foldable chain" in capsys.readouterr().out
 
 
-def test_fused_method_unbatched(sample_config, tmp_path, capsys):
-    """--method fused now runs the sequential (per-track streaming) path via
-    Detector(method='fused') and must match the oracle."""
+def test_rfft_method_unbatched(sample_config, tmp_path, capsys):
+    """--method rfft runs the sequential (per-track streaming) path on the
+    full-FFT spectral backend and must match the oracle."""
     import reference_impl as ref
     from syllable_detector_tpu.utils.wav import write_wav
     from test_detector import make_audio
@@ -269,7 +270,7 @@ def test_fused_method_unbatched(sample_config, tmp_path, capsys):
     p = tmp_path / "f.wav"
     write_wav(p, x, 44100, dtype="float32")
     rc = cli_main(
-        ["-n", "/root/reference/sample.txt", "-a", str(p), "--method", "fused"]
+        ["-n", SAMPLE_TXT, "-a", str(p), "--method", "rfft"]
     )
     assert rc == 0
     out = [l for l in capsys.readouterr().out.splitlines() if l]
@@ -310,7 +311,7 @@ def test_cli_multi_net_geometry_mismatch(sample_config, tmp_path, capsys):
 
     for extra in ([], ["--batched"]):
         rc = cli_main(
-            ["-n", "/root/reference/sample.txt", "-n", str(p_net),
+            ["-n", SAMPLE_TXT, "-n", str(p_net),
              "-a", str(wav)] + extra
         )
         assert rc == 1

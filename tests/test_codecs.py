@@ -1,6 +1,7 @@
 """Compressed-audio ingest: OGG Vorbis roundtrip (real libs), MP3 via a
 fake libmpg123, graceful degradation without codec libraries."""
 
+from conftest import SAMPLE_TXT
 import ctypes
 import os
 
@@ -71,7 +72,7 @@ def test_cli_detects_on_ogg(sample_config, tmp_path, capsys):
     decoded, rate = codecs.read_ogg_vorbis(p)
     assert rate == 44100
 
-    rc = cli_main(["-n", "/root/reference/sample.txt", "-a", str(p)])
+    rc = cli_main(["-n", SAMPLE_TXT, "-a", str(p)])
     assert rc == 0
     out = [l for l in capsys.readouterr().out.splitlines() if l]
     want = ref.cli_lines(sample_config, decoded[:, 0])

@@ -1,4 +1,4 @@
-"""Config/model-format parser tests against the real sample.txt fixture."""
+"""Config/model-format parser tests against the checked-in sample net."""
 
 import numpy as np
 import pytest
@@ -9,7 +9,7 @@ from syllable_detector_tpu.config.model_format import (
     loads_config,
 )
 
-SAMPLE = "/root/reference/sample.txt"
+from conftest import SAMPLE_TXT as SAMPLE
 
 
 def test_sample_scalars(sample_config):
@@ -21,8 +21,13 @@ def test_sample_scalars(sample_config):
     assert cfg.freq_range == (2000.0, 7000.0)
     assert cfg.time_range == 10
     assert cfg.scaling == "linear"
-    # legacy singular `threshold` key fallback
-    assert cfg.thresholds == [0.442442442442442]
+    assert cfg.thresholds == [0.9240389823913577]
+    # legacy singular `threshold` key fallback (the reference's own
+    # example net writes `threshold =`)
+    legacy = loads_config(
+        open(SAMPLE).read().replace("thresholds = ", "threshold = ")
+    )
+    assert legacy.thresholds == cfg.thresholds
 
 
 def test_sample_layers(sample_config):
@@ -34,10 +39,9 @@ def test_sample_layers(sample_config):
     assert l0.weights.shape == (4, 290)
     assert l1.weights.shape == (1, 4)
     # row-major outputs x inputs: first row starts with the first values
-    assert l0.weights[0, 0] == np.float32(-0.266159176826477)
-    assert l0.weights[0, 1] == np.float32(0.038990244269371)
-    # second output row starts 290 values in
-    assert l1.biases[0] == np.float32(-0.734308123588562)
+    assert l0.weights[0, 0] == np.float32(-1.0348469018936157)
+    assert l0.weights[0, 1] == np.float32(-0.2567209005355835)
+    assert l1.biases[0] == np.float32(-1.29518723487854)
     assert cfg.net_inputs == 290
     assert cfg.net_outputs == 1
 
@@ -96,10 +100,10 @@ def test_errors():
         loads_config(base.replace("fourierLength = 256", "fourierLength = 257"))
     assert e.value.kind == "invalidValue"
     with pytest.raises(ConfigError) as e:
-        loads_config(base.replace("samplingRate = 44100.0", ""))
+        loads_config(base.replace("samplingRate = 44100", ""))
     assert e.value.kind == "missingValue"
     with pytest.raises(ConfigError) as e:
-        loads_config(base.replace("layer1.biases = -0.734308123588562",
+        loads_config(base.replace("layer1.biases = -1.29518723487854",
                                   "layer1.biases = -0.7, 0.2"))
     assert e.value.kind == "mismatchedLength"
     with pytest.raises(ConfigError):

@@ -1,5 +1,6 @@
 """Batched corpus scan must equal the streaming CLI path file for file."""
 
+from conftest import SAMPLE_TXT
 import numpy as np
 
 import reference_impl as ref
@@ -87,19 +88,19 @@ def test_cli_batched_mesh(sample_config, tmp_path, capsys):
     p = tmp_path / "m.wav"
     write_wav(p, x, 44100, dtype="float32")
     rc = cli_main(
-        ["-n", "/root/reference/sample.txt", "-a", str(p), "--batched", "--mesh"]
+        ["-n", SAMPLE_TXT, "-a", str(p), "--batched", "--mesh"]
     )
     assert rc == 0
     out = [l for l in capsys.readouterr().out.splitlines() if l]
     assert_csv_close(out, ref.cli_lines(sample_config, x))
 
 
-def test_scan_corpus_fused_method(sample_config):
-    """method='fused' must not crash on traced params (regression: the
-    fused dispatch ran inside jit, tracing params into fold_constants)."""
+def test_scan_corpus_rfft_method(sample_config):
+    """The rfft spectral backend through the batched corpus scan agrees
+    with the GEMM band DFT."""
     rng = np.random.default_rng(13)
     streams = [make_audio(rng, seconds=0.3), make_audio(rng, seconds=0.3)]
-    got = scan_corpus(sample_config, streams, method="fused")
+    got = scan_corpus(sample_config, streams, method="rfft")
     want = scan_corpus(sample_config, streams, method="matmul")
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -138,7 +139,7 @@ def test_cli_batched_mode(sample_config, tmp_path, capsys):
         paths.append(str(p))
         audios.append(x)
     rc = cli_main(
-        ["-n", "/root/reference/sample.txt", "-a", paths[0], "-a", paths[1],
+        ["-n", SAMPLE_TXT, "-a", paths[0], "-a", paths[1],
          "--batched"]
     )
     assert rc == 0
@@ -151,7 +152,7 @@ def test_cli_batched_mode(sample_config, tmp_path, capsys):
 
 def test_batched_resamples_mismatched_rate(sample_config, tmp_path):
     """BASELINE config 4: mismatched-rate files polyphase-resample into the
-    batched (fused-capable) detection path."""
+    batched detection path."""
     rng = np.random.default_rng(4)
     n = int(1.0 * 88200)
     phase = 2 * np.pi * np.cumsum(np.linspace(2000.0, 7000.0, n)) / 88200.0
@@ -191,7 +192,7 @@ def test_scan_corpus_files_grouped_matches_ungrouped(sample_config, tmp_path):
 
 
 def test_scan_grouped_mesh_fused_combination(sample_config, tmp_path):
-    """All batched options together (mesh sharding + file groups + fused
+    """All batched options together (mesh sharding + file groups + rfft
     kernel) must still match the plain scan."""
     from syllable_detector_tpu.corpus import scan_corpus_files
     from syllable_detector_tpu.parallel.mesh import make_mesh
@@ -213,7 +214,7 @@ def test_scan_grouped_mesh_fused_combination(sample_config, tmp_path):
         return lines
 
     plain = run()
-    combo = run(mesh=make_mesh(8), group_files=2, method="fused")
+    combo = run(mesh=make_mesh(8), group_files=2, method="rfft")
     assert len(combo) == len(plain)
     # float formatting may differ in the last ulp between kernels; compare
     # the sample-accounting columns exactly and outputs numerically
@@ -254,7 +255,7 @@ def test_scan_corpus_distinct_lane_nets(sample_config):
     streams = [make_audio(rng, seconds=0.4) for _ in range(3)]
     cfg2 = _perturbed_cfg(sample_config, 1)
     lane_cfgs = [sample_config, cfg2, sample_config]
-    for method in ("matmul", "fused"):
+    for method in ("matmul", "rfft"):
         results = scan_corpus(
             sample_config, streams, method=method, lane_configs=lane_cfgs
         )
@@ -290,7 +291,7 @@ def test_scan_corpus_files_multi_net(sample_config, tmp_path):
     write_wav(p, np.stack([left, right], axis=1), 44100, dtype="float32")
     cfg2 = _perturbed_cfg(sample_config, 2)
 
-    for method in ("matmul", "fused"):
+    for method in ("matmul", "rfft"):
         lines = []
         scan_corpus_files(
             [sample_config, cfg2], [str(p)], emit=lines.append,
@@ -307,8 +308,8 @@ def test_scan_corpus_files_multi_net(sample_config, tmp_path):
 
 
 def test_scan_corpus_distinct_mesh(sample_config):
-    """Distinct lane nets + mesh sharding (the fused flagship path across
-    devices) with lane padding to the mesh size."""
+    """Distinct lane nets + mesh sharding with lane padding to the mesh
+    size."""
     from syllable_detector_tpu.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(24)
@@ -316,7 +317,7 @@ def test_scan_corpus_distinct_mesh(sample_config):
     cfg2 = _perturbed_cfg(sample_config, 3)
     lane_cfgs = [sample_config, cfg2, cfg2]
     mesh = make_mesh(4)
-    for method in ("matmul", "fused"):
+    for method in ("matmul", "rfft"):
         results = scan_corpus(
             sample_config, streams, method=method, mesh=mesh,
             lane_configs=lane_cfgs,

@@ -74,7 +74,7 @@ def test_streaming_step_equals_offline(sample_config, rng):
     np.testing.assert_allclose(got[: len(want)], want, rtol=1e-3, atol=2e-4)
 
 
-@pytest.mark.parametrize("method", ["matmul", "fused"])
+@pytest.mark.parametrize("method", ["matmul", "rfft"])
 @pytest.mark.parametrize("chunk_size", [173, 1024, 8000, 10**9])
 def test_host_detector_chunk_invariance(sample_config, rng, chunk_size, method):
     x = make_audio(rng, seconds=0.5)
@@ -106,7 +106,7 @@ def test_detector_last_outputs_and_seen(sample_config, rng):
     assert seen == bool(np.any(outs[:, 0] >= np.float32(det2.spec.thresholds[0])))
 
 
-@pytest.mark.parametrize("method", ["matmul", "fused"])
+@pytest.mark.parametrize("method", ["matmul", "rfft"])
 def test_detector_state_checkpoint_resume(sample_config, rng, tmp_path, method):
     """Snapshot mid-stream, resume in a FRESH detector (new process
     equivalent), outputs match an uninterrupted run exactly."""
@@ -219,32 +219,18 @@ def test_streaming_scan_partial_tail(sample_config, rng):
 
 def test_warm_up_compiles_all_drain_shapes(sample_config):
     """After warm_up, a streaming drain hits only pre-compiled shapes — the
-    compile-budget contract for live sessions (a cold fused bucket is a
-    5-10 min remote Mosaic compile on TPU)."""
-    import jax
-
-    from syllable_detector_tpu.kernels import fused_detector
+    compile-budget contract for live sessions (a cold bucket would stall
+    the stream for a compile)."""
     from syllable_detector_tpu.models import detector as detector_mod
 
     rng = np.random.default_rng(31)
-
-    # fused streaming detector: _fused_call must not trace again
-    det = Detector(sample_config, method="fused")
-    n = det.warm_up(buckets=(8, 32))
-    assert n == 2
-    size0 = fused_detector._fused_call._cache_size()
+    det = Detector(sample_config)
+    assert det.warm_up(buckets=(8, 32)) == 2
+    size1 = detector_mod._drain_step._cache_size()
     det.append_audio_data(make_audio(rng, seconds=0.05))
     det.drain()
     det.append_audio_data(make_audio(rng, seconds=0.08))
     det.drain()
-    assert fused_detector._fused_call._cache_size() == size0
-
-    # unfused detector: _drain_step must not trace again
-    det2 = Detector(sample_config)
-    det2.warm_up(buckets=(8, 32))
-    size1 = detector_mod._drain_step._cache_size()
-    det2.append_audio_data(make_audio(rng, seconds=0.05))
-    det2.drain()
     assert detector_mod._drain_step._cache_size() == size1
 
 
@@ -268,11 +254,10 @@ def test_streaming_precondition_errors(sample_config):
         streaming_step(spec, params, carry, jnp.zeros(spec.hop + 1))
 
 
-def test_detector_fused_streaming_deep_net(sample_config, rng):
-    """A 2-hidden-layer net through the LIVE Detector(method='fused')
-    streaming path at odd chunkings: the exported deep config must ride
-    the fused drain (not silently fall back) and match the offline
-    oracle — the train CLI emits such nets for --hidden H1 H2."""
+def test_detector_streaming_deep_net(sample_config, rng):
+    """A 2-hidden-layer net through the LIVE Detector streaming path at
+    odd chunkings must match the offline oracle — the train CLI emits
+    such nets for --hidden H1 H2."""
     from syllable_detector_tpu.utils.synth import (
         deepen_net as _deepen,
     )
@@ -288,8 +273,7 @@ def test_detector_fused_streaming_deep_net(sample_config, rng):
     assert [l.outputs for l in cfg2.layers] == [4, 6, 1]
 
     audio = make_audio(rng, seconds=0.7)
-    det = Detector(cfg2, method="fused")
-    assert det.method == "fused"  # deep nets must not fall off the path
+    det = Detector(cfg2)
     outs = []
     pos = 0
     for size in (1307, 997, 4099, 256, 9000):

@@ -1,6 +1,7 @@
 """Multi-process corpus scan: jax.distributed over two local CPU processes
-(SURVEY §5 distributed-backend TPU equivalent: DCN-sharded file lists)."""
+(SURVEY §5 distributed backend: process-sharded file lists)."""
 
+from conftest import SAMPLE_TXT
 import os
 import socket
 import subprocess
@@ -58,7 +59,7 @@ def test_two_process_scan(sample_config, tmp_path):
             "--coordinator", f"127.0.0.1:{port}",
             "--num-processes", "2", "--process-id", str(pid),
             "--platform", "cpu",
-            "-n", "/root/reference/sample.txt",
+            "-n", SAMPLE_TXT,
             "-o", str(out_dir),
         ]
         for p in paths:

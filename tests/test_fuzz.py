@@ -18,13 +18,10 @@ from syllable_detector_tpu.config.model_format import (
     dumps_config,
     loads_config,
 )
-from syllable_detector_tpu.kernels.fused_detector import (
-    fusable,
-    fused_offline_outputs,
-)
 from syllable_detector_tpu.models.detector import (
     Detector,
     detector_spec_from_config,
+    fusable,
     offline_outputs,
 )
 from syllable_detector_tpu.ops.stft import frequency_index_range
@@ -149,15 +146,6 @@ def test_random_config_pipeline(seed):
     if len(got):
         np.testing.assert_allclose(stream, got, rtol=5e-3, atol=1e-3)
 
-    # fused kernel (interpret) where the pattern allows
-    if fusable(spec) and len(want):
-        fused = np.asarray(
-            fused_offline_outputs(
-                spec, params, jnp.asarray(x), tile=64, interpret=True
-            )
-        )
-        np.testing.assert_allclose(fused, got, rtol=5e-3, atol=1e-3)
-
     # sequence-parallel (time-sharded, ppermute halo) equals offline for
     # every random geometry — gaps, odd lengths, short-stream fallback
     from syllable_detector_tpu.parallel.mesh import (
@@ -181,104 +169,25 @@ def test_random_config_pipeline(seed):
         assert tp.shape == got.shape
         np.testing.assert_allclose(tp, got, rtol=5e-3, atol=1e-3)
 
-    # per-channel DISTINCT nets on the fused batched path for every random
-    # geometry: channel-stacked folded operands vs the vmap oracle
-    if fusable(spec) and len(got):
-        import jax
+    # per-channel DISTINCT nets on the batched corpus path for every random
+    # geometry: each lane must equal its own net's single-stream outputs
+    if len(got):
+        from syllable_detector_tpu.corpus import batch_offline_outputs_shared
+        from syllable_detector_tpu.utils.synth import perturbed_params
 
-        from syllable_detector_tpu.kernels.fused_detector import (
-            fused_batch_offline_outputs,
-        )
-        from syllable_detector_tpu.models.neural_net import stack_params
-
-        def _perturb(p, s):
-            r2 = np.random.default_rng(s)
-            return jax.tree.map(
-                lambda a: jnp.asarray(
-                    np.asarray(a)
-                    * (1.0 + 0.05 * r2.standard_normal(np.asarray(a).shape))
-                ),
-                p,
-            )
-
-        plist = [params, _perturb(params, seed), _perturb(params, seed + 99)]
+        plist = [params, perturbed_params(params, seed),
+                 perturbed_params(params, seed + 99)]
         xs = jnp.stack([jnp.asarray(x)] * 3)
-        fb = np.asarray(
-            fused_batch_offline_outputs(
-                spec, plist, xs, tile=64, interpret=True
+        fb = np.asarray(batch_offline_outputs_shared(spec, plist, xs))
+        for lane, p in enumerate(plist):
+            np.testing.assert_allclose(
+                fb[lane],
+                np.asarray(offline_outputs(spec, p, jnp.asarray(x))),
+                rtol=1e-5, atol=1e-6,
             )
-        )
-        vb = np.asarray(
-            jax.vmap(lambda p, xx: offline_outputs(spec, p, xx))(
-                stack_params(plist), xs
-            )
-        )
-        np.testing.assert_allclose(fb, vb, rtol=5e-3, atol=1e-3)
-
-        # flat layout (the hot batched path), shared + distinct, both
-        # output layouts, and the k=8 multi-hop slab — random geometries,
-        # all vs the same vmap oracle. These layouts carried subtle
-        # routing bugs (a silently-dropped out_t flag) that only
-        # geometry-diverse property coverage catches systematically.
-        # Gated to even seeds: each variant compiles its own interpret
-        # kernel, ~13 s per geometry.
-        from syllable_detector_tpu.kernels.fused_detector import (
-            fused_flat_batch_offline_outputs,
-        )
-
-        for p, want_b in (
-            ((params, None), (plist, vb)) if seed % 2 == 0 else ()
-        ):
-            flat_prev = None
-            for kwargs in (
-                {"out_t": False},
-                {"out_t": True},
-                {"hops_per_row": 8, "out_t": False},
-                {"hops_per_row": 8, "out_t": True},
-            ):
-                fl = np.asarray(
-                    fused_flat_batch_offline_outputs(
-                        spec, p, xs, tile=64, interpret=True, **kwargs
-                    )
-                )
-                if flat_prev is None:
-                    flat_prev = fl
-                    oracle = want_b if want_b is not None else np.asarray(
-                        jax.vmap(
-                            lambda xx: offline_outputs(spec, params, xx)
-                        )(xs)
-                    )
-                    np.testing.assert_allclose(
-                        fl, oracle, rtol=5e-3, atol=1e-3
-                    )
-                else:
-                    # layouts agree to float32 rounding for ANY geometry
-                    # (k=8 slab parts can reassociate a GEMM term);
-                    # bit-exactness on the sample net's geometry is
-                    # asserted by the dedicated kernel tests
-                    np.testing.assert_allclose(
-                        fl, flat_prev, rtol=1e-5, atol=1e-6
-                    )
-
-    # phase-split sub-blocked kernel agrees with the whole-tile kernel
-    # across random fusable geometries (odd seeds, balancing the even-seed
-    # flat-layout block above)
-    if fusable(spec) and len(got) and seed % 2 == 1:
-        f1 = np.asarray(
-            fused_offline_outputs(
-                spec, params, jnp.asarray(x), tile=64, interpret=True
-            )
-        )
-        fs = np.asarray(
-            fused_offline_outputs(
-                spec, params, jnp.asarray(x), tile=64, interpret=True,
-                phase_split=2,
-            )
-        )
-        np.testing.assert_allclose(fs, f1, rtol=1e-5, atol=1e-6)
 
     # DetectorBank (batched live drain) equals independent Detectors for
-    # every random geometry, fused or matmul-fallback alike
+    # every random geometry
     if len(got):
         from syllable_detector_tpu.models.detector_bank import DetectorBank
 

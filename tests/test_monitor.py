@@ -2,13 +2,14 @@
 processor window (channel table at 10 Hz + TTL outputs,
 ViewControllerProcessor.swift:57, 110-154, 278-284)."""
 
+from conftest import SAMPLE_TXT
 import numpy as np
 import pytest
 
 from syllable_detector_tpu.monitor import main as monitor_main
 from syllable_detector_tpu.utils.wav import write_wav
 
-NET = "/root/reference/sample.txt"
+NET = SAMPLE_TXT
 
 
 @pytest.fixture(scope="module")

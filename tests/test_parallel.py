@@ -179,150 +179,6 @@ def test_tensor_sharded_matches_offline(sample_config, scaling):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-def test_time_sharded_fused_method(setup):
-    """Sequence parallelism with the fused Pallas kernel per shard (the
-    fast long-stream corpus scan shape)."""
-    from syllable_detector_tpu.parallel.mesh import time_sharded_offline_outputs
-
-    spec, params, _, _ = setup
-    rng = np.random.default_rng(12)
-    x = jnp.asarray(make_audio(rng, seconds=2.0))
-    mesh = make_mesh(4, axis="time")
-    got = np.asarray(
-        time_sharded_offline_outputs(mesh, spec, params, x, method="fused")
-    )
-    want = np.asarray(offline_outputs(spec, params, x))
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
-
-
-def _perturbed(params, seed, scale=0.05):
-    r = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda a: jnp.asarray(
-            np.asarray(a) * (1.0 + scale * r.standard_normal(np.asarray(a).shape))
-        ),
-        params,
-    )
-
-
-@pytest.mark.parametrize("distinct", [False, True])
-def test_sharded_fused_matches_vmap(setup, distinct):
-    """The flagship fused kernel, channel-sharded over the mesh, with shared
-    or DISTINCT per-channel nets (Processor.swift:57-59's deployment)."""
-    from syllable_detector_tpu.parallel.mesh import (
-        sharded_fused_offline_outputs,
-    )
-
-    spec, params, stacked, xs = setup
-    mesh = make_mesh(4)
-    if distinct:
-        plist = [_perturbed(params, i) for i in range(xs.shape[0])]
-        got = np.asarray(
-            sharded_fused_offline_outputs(mesh, spec, plist, xs, tile=128)
-        )
-        want = np.asarray(
-            batch_offline_outputs(spec, stack_params(plist), xs)
-        )
-    else:
-        got = np.asarray(
-            sharded_fused_offline_outputs(mesh, spec, params, xs, tile=128)
-        )
-        want = np.asarray(batch_offline_outputs(spec, stacked, xs))
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
-
-
-def test_sharded_fused_flat_hbm_guard_falls_back(setup, monkeypatch):
-    """A per-shard flat footprint beyond the HBM budget routes the
-    shard_map body to the memory-safe grid path instead of surfacing an
-    opaque RESOURCE_EXHAUSTED mid-run (same contract as fused_batch)."""
-    from syllable_detector_tpu.kernels import fused_detector as fd
-    from syllable_detector_tpu.parallel.mesh import (
-        sharded_fused_offline_outputs,
-    )
-
-    spec, params, stacked, xs = setup
-    mesh = make_mesh(2)
-    monkeypatch.setattr(fd, "_flat_hbm_budget", lambda: 1)
-    called = {}
-    real_grid = fd._batch_core_slabbed
-
-    def spy_grid(*a, **k):
-        called["grid"] = True
-        return real_grid(*a, **k)
-
-    monkeypatch.setattr(fd, "_batch_core_slabbed", spy_grid)
-    import syllable_detector_tpu.parallel.mesh as mesh_mod
-
-    monkeypatch.setattr(mesh_mod, "_sharded_fn_cache", type(mesh_mod._sharded_fn_cache)())
-    got = np.asarray(
-        sharded_fused_offline_outputs(mesh, spec, params, xs, layout="flat")
-    )
-    want = np.asarray(batch_offline_outputs(spec, stacked, xs))
-    assert called.get("grid")
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
-
-
-def test_sharded_fused_escalates_to_multi_hop(setup, monkeypatch):
-    """Budget between the k=1 and k=8 per-shard estimates routes the
-    shard_map body to the multi-hop flat layout (capacity tier) before
-    the slower grid fallback."""
-    from syllable_detector_tpu.kernels import fused_detector as fd
-    from syllable_detector_tpu.parallel.mesh import (
-        sharded_fused_offline_outputs,
-    )
-
-    spec, params, stacked, xs = setup
-    mesh = make_mesh(2)
-    c_local = xs.shape[0] // 2
-    # the mesh guard checks k=1 with out_t=True; k=8 stays plain
-    e1 = fd._flat_hbm_estimate(spec, 64, c_local, 128, False, out_t=True)
-    e8 = fd._flat_hbm_estimate(
-        spec, 64, c_local, 128, False, hops_per_row=8, out_t=True
-    )
-    assert e8 < e1
-    monkeypatch.setattr(fd, "_flat_hbm_budget", lambda: (e1 + e8) // 2)
-    called = {}
-    real_core = fd._flat_core
-
-    def spy_core(*a, **kw):
-        called["k"] = kw.get("hops_per_row")
-        return real_core(*a, **kw)
-
-    monkeypatch.setattr(fd, "_flat_core", spy_core)
-    import syllable_detector_tpu.parallel.mesh as mesh_mod
-
-    monkeypatch.setattr(
-        mesh_mod, "_sharded_fn_cache", type(mesh_mod._sharded_fn_cache)()
-    )
-    got = np.asarray(
-        sharded_fused_offline_outputs(
-            mesh, spec, params, xs, layout="flat", tile=128, n_evals=64
-        )
-    )
-    assert called.get("k") == 8
-    want = np.asarray(batch_offline_outputs(spec, stacked, xs))[:, :64]
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
-
-
-def test_sharded_fused_distinct_slabbed(setup):
-    from syllable_detector_tpu.parallel.mesh import (
-        sharded_fused_offline_outputs,
-    )
-
-    spec, params, stacked, xs = setup
-    mesh = make_mesh(2)  # 4 local channels per device, slab 2 inside each
-    plist = [_perturbed(params, 100 + i) for i in range(xs.shape[0])]
-    got = np.asarray(
-        sharded_fused_offline_outputs(
-            mesh, spec, plist, xs, tile=128, slab_channels=2
-        )
-    )
-    want = np.asarray(batch_offline_outputs(spec, stack_params(plist), xs))
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
-
-
 def test_tensor_sharded_setup_cached(sample_config, monkeypatch):
     """Second call does NO numpy fold work and no retrace (r2 VERDICT:
     tensor_sharded re-folded and re-jitted per call)."""
@@ -372,19 +228,40 @@ def test_time_sharded_setup_cached(sample_config):
     assert fn._cache_size() == 1
 
 
-def test_time_sharded_fused_large_net_guarded(sample_config):
-    """The fused branch embeds params as HLO literals; a large net must be
-    rejected loudly instead of surprising a remote compiler."""
-    import pytest
-
-    from syllable_detector_tpu.parallel import mesh as mesh_mod
+def test_time_sharded_rfft_method(setup):
+    """Sequence parallelism with the rfft spectral backend per shard."""
     from syllable_detector_tpu.parallel.mesh import time_sharded_offline_outputs
 
-    spec, params = detector_spec_from_config(sample_config)
-    big = dict(params)
-    big["_pad"] = jnp.zeros((5 << 20) // 4, jnp.float32)  # 5 MiB of leaves
-    rng = np.random.default_rng(42)
+    spec, params, _, _ = setup
+    rng = np.random.default_rng(12)
     x = jnp.asarray(make_audio(rng, seconds=2.0))
-    m = make_mesh(4, axis="time")
-    with pytest.raises(ValueError, match="4 MiB"):
-        time_sharded_offline_outputs(m, spec, big, x, method="fused")
+    mesh = make_mesh(4, axis="time")
+    got = np.asarray(
+        time_sharded_offline_outputs(mesh, spec, params, x, method="rfft")
+    )
+    want = np.asarray(offline_outputs(spec, params, x, method="rfft"))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_sharded_corpus_matches_vmap(setup, distinct):
+    """The corpus scan's channel-sharded path (``cli --batched --mesh``)
+    with a shared or DISTINCT per-channel nets equals the one-device vmap."""
+    from syllable_detector_tpu.corpus import (
+        sharded_batch_offline_outputs_shared,
+    )
+    from syllable_detector_tpu.utils.synth import perturbed_params
+
+    spec, params, stacked, xs = setup
+    mesh = make_mesh(4)
+    if distinct:
+        plist = [perturbed_params(params, i) for i in range(xs.shape[0])]
+        got = sharded_batch_offline_outputs_shared(mesh, spec, plist, xs)
+        want = batch_offline_outputs(spec, stack_params(plist), xs)
+    else:
+        got = sharded_batch_offline_outputs_shared(mesh, spec, params, xs)
+        want = batch_offline_outputs(spec, stacked, xs)
+    np.testing.assert_allclose(
+        np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-6
+    )

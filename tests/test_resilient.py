@@ -186,7 +186,7 @@ def test_resilient_init_handshake_failure_kills_child(sample_config, monkeypatch
     """A failed/hung ready handshake must not LEAK the spawned child: the
     exception escapes __init__ (no instance -> close() can never run), so
     _start_child itself reaps the process — otherwise a daemon child
-    holding the exclusive TPU claim starves every retry in this parent."""
+    holding the card starves every retry in this parent."""
     from syllable_detector_tpu.runtime import resilient as rmod
 
     killed = []

@@ -107,9 +107,14 @@ def test_spsc_threads(ring_kind):
 
 
 def test_ensure_native_library_contract(tmp_path):
-    """Shared build helper (utils.native_build): builds via a temp name +
+    """Shared build helper (utils.native_build): builds into a library
+    keyed on the source (same source -> same library, reused; edited
+    source -> a fresh build, never the stale one), via a temp name +
     atomic rename, removes the temp on compile failure, and raises with
     compiler stderr attached."""
+    import ctypes
+    import os
+
     import pytest
 
     from syllable_detector_tpu.utils.native_build import (
@@ -119,27 +124,33 @@ def test_ensure_native_library_contract(tmp_path):
 
     # success: a trivial translation unit builds and loads
     src = tmp_path / "ok.cpp"
-    src.write_text('extern "C" int forty_two() { return 42; }\n')
-    out = tmp_path / "libok.so"
-    assert ensure_native_library(str(src), str(out)) == str(out)
-    import ctypes
-
-    assert ctypes.CDLL(str(out)).forty_two() == 42
-    # existing library: returned as-is without rebuilding (src untouched)
-    src.unlink()
-    assert ensure_native_library(str(src), str(out)) == str(out)
+    src.write_text('extern "C" int answer() { return 42; }\n')
+    out = ensure_native_library(str(src))
+    assert os.path.dirname(out) == str(tmp_path / "build")
+    assert ctypes.CDLL(out).answer() == 42
+    # same source: the existing build is reused, not rebuilt
+    stamp = os.stat(out).st_mtime_ns
+    assert ensure_native_library(str(src)) == out
+    assert os.stat(out).st_mtime_ns == stamp
+    # edited source: a new library, built from the new text
+    src.write_text('extern "C" int answer() { return 7; }\n')
+    out2 = ensure_native_library(str(src))
+    assert out2 != out
+    assert ctypes.CDLL(out2).answer() == 7
 
     # missing source
     with pytest.raises(NativeBuildError, match="not found"):
-        ensure_native_library(str(tmp_path / "nope.cpp"), str(tmp_path / "x.so"))
+        ensure_native_library(str(tmp_path / "nope.cpp"))
 
     # compile failure: stderr captured, no temp file left behind
     bad = tmp_path / "bad.cpp"
     bad.write_text("this is not C++\n")
     with pytest.raises(NativeBuildError) as ei:
-        ensure_native_library(str(bad), str(tmp_path / "libbad.so"))
+        ensure_native_library(str(bad))
     assert ei.value.stderr  # compiler diagnostics attached
-    leftovers = [p.name for p in tmp_path.iterdir() if ".tmp" in p.name]
+    leftovers = [
+        p.name for p in (tmp_path / "build").iterdir() if ".tmp" in p.name
+    ]
     assert leftovers == []
 
 

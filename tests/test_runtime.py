@@ -477,7 +477,7 @@ def test_simulated_arduino_startup_delay():
 
 
 def test_processor_batched_drain(sample_config):
-    """batched=True drains every lane in ONE fused DetectorBank call; the
+    """batched=True drains every lane in ONE DetectorBank program; the
     detections and TTL behavior must match the per-lane mode."""
     rng = np.random.default_rng(3)
     audio = make_audio(rng, seconds=0.6)
@@ -735,7 +735,7 @@ def test_processor_long_stream_soak_invariants(sample_config):
     ]
     proc = Processor(
         interface, entries, CallbackOutput(lambda *a: None),
-        batched=True, method="matmul",
+        batched=True,
     )
     proc.set_up()
     assert interface.wait_until_done(timeout=120)
@@ -932,7 +932,7 @@ def test_event_log_per_lane_matches_batched_and_oracle(sample_config):
             [ProcessorEntry(0, 0, sample_config)],
             CallbackOutput(lambda *a: None),
             batched=batched,
-            method="matmul",
+
             event_log=lambda ch, s, t, o: events.append(
                 (ch, s, t, tuple(np.asarray(o).tolist()))
             ),
@@ -967,7 +967,7 @@ def test_event_log_per_lane_matches_batched_and_oracle(sample_config):
     spec_thr = np.float32(sample_config.thresholds[0])
     rate = sample_config.sampling_rate
     want = []
-    oracle = DetectorBank([sample_config], method="matmul")
+    oracle = DetectorBank([sample_config])
     for feed in (pre, None, post):
         if feed is None:
             oracle.note_gap(0, n_lost)
@@ -1017,7 +1017,7 @@ def test_processor_gap_splice_fuzz(sample_config, batched, seed):
         [ProcessorEntry(0, 0, sample_config)],
         CallbackOutput(lambda *a: None),
         batched=batched,
-        method="matmul",
+
         event_log=lambda ch, s, t, o: got.append((s, tuple(np.round(o, 4)))),
     )
     lane = proc._lanes[0]
@@ -1025,7 +1025,7 @@ def test_processor_gap_splice_fuzz(sample_config, batched, seed):
         lambda: proc._drain_lane(0, lane)
     )
 
-    oracle = DetectorBank([sample_config], method="matmul")
+    oracle = DetectorBank([sample_config])
     want = []
 
     def oracle_drain():

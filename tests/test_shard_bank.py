@@ -81,15 +81,14 @@ def test_sharded_bank_overflow_accounting(sample_config):
 
 
 def test_sharded_bank_unfusable_routes_matmul(sample_config):
-    """An unfusable chain demotes to the matmul method on BOTH sides
-    (worker staging + parent eval) and still matches the oracle."""
+    """A chain the affine fold cannot express (``normalize``) drains on
+    BOTH sides (worker staging + parent eval) and matches the oracle."""
     cfg = dataclasses.replace(
         sample_config, process_inputs=[ProcessingSpec("normalize")]
     )
     cfgs = [cfg, cfg]
     audio = make_audio(np.random.default_rng(5), seconds=0.4)
     oracle = DetectorBank(cfgs, buckets=(16,))
-    assert oracle.method == "matmul"
     with ShardedDetectorBank(cfgs, n_workers=2, buckets=(16,)) as bank:
         for i in range(2):
             bank.append_audio_data(i, audio)
@@ -120,6 +119,19 @@ def test_sharded_bank_seen_and_lifecycle(sample_config):
     bank.close()  # idempotent
     with pytest.raises(RuntimeError, match="closed"):
         bank.drain()
+
+
+def test_sharded_bank_workers_start_no_jax_backend(sample_config):
+    """Workers stage audio only: after appends and drains none of them
+    has started a JAX backend (on a GPU host one would reserve most of
+    the card the parent serves from)."""
+    cfgs = [_perturbed_cfg(sample_config, i) for i in range(2)]
+    audio = make_audio(np.random.default_rng(6), seconds=0.3)
+    with ShardedDetectorBank(cfgs, n_workers=2, buckets=(32,)) as bank:
+        for i in range(2):
+            bank.append_audio_data(i, audio)
+        bank.drain(flush=True)
+        assert bank.worker_backends_initialized() == [False, False]
 
 
 def test_sharded_bank_validates_args(sample_config):

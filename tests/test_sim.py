@@ -1,5 +1,6 @@
 """Simulator: detection-signal WAV layout (ViewControllerSimulator parity)."""
 
+from conftest import SAMPLE_TXT
 import numpy as np
 
 from syllable_detector_tpu.models.detector import detector_spec_from_config, offline_outputs
@@ -35,7 +36,7 @@ def test_sim_cli(sample_config, rng, tmp_path, capsys):
     wav_out = tmp_path / "out.wav"
     write_wav(wav_in, x, 44100, dtype="float32")
     rc = sim_main(
-        ["-n", "/root/reference/sample.txt", "-a", str(wav_in), "-o", str(wav_out)]
+        ["-n", SAMPLE_TXT, "-a", str(wav_in), "-o", str(wav_out)]
     )
     assert rc == 0
     y, rate = read_wav(wav_out)
@@ -50,7 +51,7 @@ def test_sim_cli_errors(tmp_path, capsys):
     assert sim_main(["-n", str(tmp_path / "x.txt"), "-a", "a.wav", "-o", "b.wav"]) == 1
     assert (
         sim_main(
-            ["-n", "/root/reference/sample.txt", "-a", str(tmp_path / "no.wav"),
+            ["-n", SAMPLE_TXT, "-a", str(tmp_path / "no.wav"),
              "-o", str(tmp_path / "b.wav")]
         )
         == 1

@@ -249,7 +249,7 @@ def _two_channel_dataset(settings):
 
 def test_train_ensemble_distinct_nets(settings):
     """C independent nets train in ONE device program (the training-side
-    counterpart of the fused kernel's per-channel distinct networks);
+    counterpart of the live bank's per-channel distinct networks);
     each must separate ITS channel's syllables, and the nets must differ."""
     import dataclasses
 
@@ -357,18 +357,14 @@ def test_train_cli_mismatched_pairs(tmp_path):
     assert rc == 1
 
 
-def test_train_cli_deep_net_fused(tmp_path):
-    """--hidden 8 4 exports a 2-hidden-layer net that the FUSED kernel can
-    serve (the reference's patternnet supports arbitrary depth,
-    convert_to_text.m writes every layer; a deep net must not silently fall
-    off the flagship path)."""
+def test_train_cli_deep_net(tmp_path):
+    """--hidden 8 4 exports a 2-hidden-layer net (the reference's
+    patternnet supports arbitrary depth, convert_to_text.m writes every
+    layer) that loads and detects like the NumPy oracle."""
     import numpy as np
 
+    import reference_impl as ref
     from syllable_detector_tpu.config.model_format import load_config
-    from syllable_detector_tpu.kernels.fused_detector import (
-        fusable,
-        fused_offline_outputs,
-    )
     from syllable_detector_tpu.models.detector import (
         detector_spec_from_config,
         offline_outputs,
@@ -391,15 +387,35 @@ def test_train_cli_deep_net_fused(tmp_path):
     cfg = load_config(net)
     assert [l.outputs for l in cfg.layers] == [8, 4, 1]
     spec, params = detector_spec_from_config(cfg)
-    assert fusable(spec)
-    import jax.numpy as jnp
-
-    x = jnp.asarray(audio[: 44100])
-    want = np.asarray(offline_outputs(spec, params, x))
-    got = np.asarray(fused_offline_outputs(spec, params, x, interpret=True))
+    x = audio[:22050]
+    got = np.asarray(offline_outputs(spec, params, x))
     np.testing.assert_allclose(
-        got, want[: got.shape[0]], rtol=1e-3, atol=2e-4
+        got, ref.detect_offline(cfg, x), rtol=1e-3, atol=2e-4
     )
+
+
+def test_train_checkpoint_without_orbax(tmp_path, monkeypatch, capsys):
+    """orbax is optional: --checkpoint-dir without it fails up front with
+    a clear message, not after training or with a traceback."""
+    import sys
+
+    from syllable_detector_tpu.train import main as train_main
+    from syllable_detector_tpu.utils.wav import write_wav
+
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    audio, intervals = make_labeled_audio(seconds=2.0)
+    wav = tmp_path / "train.wav"
+    write_wav(wav, audio, 44100, dtype="float32")
+    labels = tmp_path / "labels.csv"
+    labels.write_text("\n".join(f"{lo},{hi}" for lo, hi in intervals))
+    rc = train_main(
+        ["-a", str(wav), "-l", str(labels), "-o", str(tmp_path / "n.txt"),
+         "--epochs", "2", "--quiet", "--checkpoint-dir",
+         str(tmp_path / "ckpt")]
+    )
+    assert rc == 1
+    assert "orbax" in capsys.readouterr().err
 
 
 def test_train_input_validation(settings):
@@ -995,10 +1011,20 @@ def test_train_mapstd_roundtrip(settings, dataset):
 
 
 def test_train_mapstd_only_chain_fused_parity(settings, dataset):
-    """A mapstd-only chain (no l2normalize) exports, reloads, and the fused
-    kernel's constant folding (fold_input_affines has_l2=False) matches the
-    unfused path on it."""
+    """A mapstd-only chain (no l2normalize) exports, reloads, and the
+    affine constant folding (fold_input_affines has_l2=False, used by the
+    tensor-parallel path) matches the unfolded path on it."""
     import dataclasses
+
+    from syllable_detector_tpu.models.detector import (
+        detector_spec_from_config,
+        fusable,
+        offline_outputs,
+    )
+    from syllable_detector_tpu.parallel.mesh import (
+        make_mesh,
+        tensor_sharded_offline_outputs,
+    )
 
     audio, intervals, feats, labels = dataset
     s = dataclasses.replace(
@@ -1008,15 +1034,14 @@ def test_train_mapstd_only_chain_fused_parity(settings, dataset):
     cfg2 = loads_config(
         dumps_config(export_trained_config(s, net_spec, params, threshold))
     )
-    d1 = Detector(cfg2)
-    d1.append_audio_data(audio)
-    base = d1.drain()
-    d2 = Detector(cfg2, method="fused")
-    d2.append_audio_data(audio)
-    fused = d2.drain()
-    n = min(len(base), len(fused))
-    assert n > 0
-    np.testing.assert_allclose(fused[:n], base[:n], atol=2e-3)
+    spec, p2 = detector_spec_from_config(cfg2)
+    assert fusable(spec)
+    base = np.asarray(offline_outputs(spec, p2, audio))
+    fused = np.asarray(
+        tensor_sharded_offline_outputs(make_mesh(4, axis="model"), spec, p2, audio)
+    )
+    assert len(base) > 0 and fused.shape == base.shape
+    np.testing.assert_allclose(fused, base, atol=2e-3)
 
 
 def test_train_cli_mapstd(tmp_path):
